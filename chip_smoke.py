@@ -6,21 +6,31 @@ Phases, each of which raises (non-zero exit) on failure:
   1. require a CUDA device; print its name and power limit;
   2. build every kernel from loam_tpu_torch/csrc (one nvcc per source,
      all started together);
-  3. hold each kernel against its plain PyTorch version at the main
-     path's shapes on seeded inputs (indices and bit-fields equal,
-     squared distances within 1e-6 relative) and time both with CUDA
-     events (median of 20 runs);
+  3. hold each kernel against its plain PyTorch version at the replays'
+     shapes on seeded inputs (indices, bit-fields and coordinates equal,
+     squared distances within 1e-6 relative); time both with CUDA events
+     (median of 20 runs), time the one PyTorch library expression that
+     computes the same function where there is one (cdist + topk for the
+     k-NN kernels, topk + gather for kselect), and compute each kernel's
+     bound: the larger of its bytes (each input read once, each output
+     written once) over 3.35 TB/s and its operations (counted for the
+     live inputs and tile windows of this run) over 67 TFLOP/s;
   4. replay 13 full-density synthetic VLP-16 sweeps through
-     loam_tpu_torch.pipeline.replay_sweeps with LoamConfig() unchanged,
-     count every kernel's launches in that run (each must be > 0), and
-     hold the integrated trajectory within 5 cm ATE of the NumPy golden
-     oracle (tests/golden) on the same sweeps.
-The second-to-last lines are the kernels JSON and the card's name and
-power limit; the last line is {"ok": true, "device": {...}}.
+     loam_tpu_torch.pipeline.replay_sweeps three times: LoamConfig()
+     unchanged (strict exact k-NN), map_exact_regather_every=5 (the
+     hybrid cadence) and map_exact_knn=False (the cell-bucket map).
+     Launch counts are zeroed before each replay and read after it; a
+     kernel of that replay's path with no launch fails the run.  Each
+     integrated trajectory must be finite, within 5 cm ATE of the NumPy
+     golden oracle (tests/golden) on the same sweeps, and have the
+     oracle's mapping cadence.
+The last three lines are the kernels JSON, the card's name and power
+limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -37,6 +47,27 @@ FRAMES = 13
 N_AZIMUTH = 1800
 REL_TOL = 1e-6     # squared distances, kernel vs plain
 ATE_GATE = 0.05    # metres, integrated trajectory vs the golden oracle
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12      # fp32 outside the tensor cores
+PAIR_OPS = 9       # 3 sub, 3 mul, 2 add, 1 compare per query/point pair
+
+# name -> (config changes, wrappers that must launch, must not launch)
+REPLAYS = {
+    "default": ({}, ("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk"),
+                ("knn_select",)),
+    "hybrid": (dict(map_exact_regather_every=5),
+               ("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk",
+                "knn_select"), ()),
+    "cells": (dict(map_exact_knn=False),
+              ("knn_topk", "odom_corr", "select_walk", "knn_select"),
+              ("knn_topk_dyn",)),
+}
+
+
+def replay_config(name: str):
+    from loam_tpu_torch.config import LoamConfig
+
+    return dataclasses.replace(LoamConfig(), **REPLAYS[name][0])
 
 
 def card_line() -> str:
@@ -63,6 +94,14 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least milliseconds the card could take, and what sets it."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / FP32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def _rel_err(a, b):
     a, b = a.double().cpu(), b.double().cpu()
     live = (a < 1e28) | (b < 1e28)
@@ -78,12 +117,13 @@ def _abs_err(a, b):
 
 
 def _compare(name, kernel_out, plain_out, n_idx):
-    """First n_idx outputs are indices or bit-fields (must be equal), the
-    rest squared distances (within REL_TOL).  Returns max abs error."""
+    """First n_idx outputs are indices, bit-fields or coordinates (must be
+    equal), the rest squared distances (within REL_TOL).  Returns max abs
+    error."""
     for k, p in zip(kernel_out[:n_idx], plain_out[:n_idx]):
         if not torch.equal(k.cpu(), p.cpu()):
             bad = int((k.cpu() != p.cpu()).sum())
-            raise AssertionError(f"{name}: {bad} index entries differ")
+            raise AssertionError(f"{name}: {bad} exact entries differ")
     err = 0.0
     for k, p in zip(kernel_out[n_idx:], plain_out[n_idx:]):
         if _rel_err(k, p) > REL_TOL:
@@ -93,7 +133,7 @@ def _compare(name, kernel_out, plain_out, n_idx):
 
 
 def make_sweeps():
-    from loam_tpu.io import synth
+    from loam_tpu_torch.io import synth
 
     world = synth.make_world(seed=SEED)
     poses = synth.straight_trajectory(FRAMES, speed=0.9, yaw_rate=0.1)
@@ -105,11 +145,19 @@ def make_sweeps():
     return raw, np.stack([s[1] for s in sweeps])
 
 
+def _library_knn(q, ref, k):
+    """cdist + topk over the live queries and references."""
+    return torch.cdist(q, ref).topk(k, dim=-1, largest=False)
+
+
 def kernel_phase(dev, raw, msk, cfg):
-    """Each kernel vs its plain version at the main path's shapes."""
+    """Each kernel vs its plain version at the replays' shapes.  Returns
+    one row a kernel (its largest shape), with the other shapes' rows
+    under "other_shapes"."""
     from loam_tpu_torch import frontend
     from loam_tpu_torch.ops import features as FT
     from loam_tpu_torch.ops.cuda import knn_topk as KN
+    from loam_tpu_torch.ops.cuda import kselect as KS
     from loam_tpu_torch.ops.cuda import odom_corr as OC
     from loam_tpu_torch.ops.cuda import select_walk as SW
 
@@ -122,59 +170,87 @@ def kernel_phase(dev, raw, msk, cfg):
         pts[:, live:] = 0.0
         return torch.tensor(pts, device=dev)
 
+    def add(name, counter, source, replaces, shapes):
+        """shapes: the per-shape measurement dicts, largest last."""
+        row = dict(name=name, counter=counter, route="cuda", source=source,
+                   replaces=replaces, **shapes[-1])
+        row["max_abs_err"] = max(s["max_abs_err"] for s in shapes)
+        row["other_shapes"] = shapes[:-1]
+        rows.append(row)
+
     # ---- knn_topk k=1: the odometry 1-NN (corner, then surf shapes)
-    err, ms = 0.0, {}
+    shapes = []
     for Q, M in ((256, 2048), (512, 16384)):
-        n_ref = torch.tensor([M * 2 // 3], **i32)
-        ref = cloud(M, M * 2 // 3, 30.0)
-        q = (ref[:, rng.integers(0, M * 2 // 3, Q)]
+        live = M * 2 // 3
+        n_ref = torch.tensor([live], **i32)
+        n_q = torch.tensor([Q], **i32)
+        ref = cloud(M, live, 30.0)
+        q = (ref[:, rng.integers(0, live, Q)]
              + torch.tensor(rng.normal(0, 0.2, (1, Q, 3)), device=dev)
              ).float().contiguous()
         t_lo, t_hi = KN.full_windows(1, Q, M, 256, 512, dev)
-        run_k = lambda: KN._launch(q, ref, torch.tensor([Q], **i32), n_ref,
-                                   1, t_lo, t_hi, 256, 512)
-        run_p = lambda: KN.knn_topk_plain(q, ref, torch.tensor([Q], **i32),
-                                          n_ref, 1, t_lo, t_hi, tq=256,
-                                          tm=512)
-        err = max(err, _compare("knn_topk", run_k(), run_p(), 1))
-        ms = dict(ms=time_ms(run_k), plain_ms=time_ms(run_p))
-    rows.append(dict(name="knn_topk", source="loam_tpu_torch/csrc/knn_topk.cu",
-                     replaces="loam_tpu/ops/pallas/knn_topk.py:63",
-                     max_abs_err=err, shape="Q=512,M=16384,k=1", **ms))
-
-    # ---- knn_topk_dyn k=5 with tile windows: the mapping 5-NN
-    err = 0.0
-    for Q, M, n_q, n_ref_i in ((2048, 32768, 1500, 25000),
-                               (8192, 65536, 6000, 50000)):
-        half = np.array([60.0, 20.0, 5.0])
-        ref_np = rng.uniform(-half, half, (n_ref_i, 3)).astype(np.float32)
-        ref_np = ref_np[np.argsort(ref_np[:, 0], kind="stable")]
-        refp = np.zeros((1, M, 3), np.float32)
-        refp[0, :n_ref_i] = ref_np
-        q_np = ref_np[rng.integers(0, n_ref_i, n_q)] + rng.normal(
-            0, 0.3, (n_q, 3))
-        q_np = q_np[np.argsort(q_np[:, 0], kind="stable")]
-        qp = np.zeros((1, Q, 3), np.float32)
-        qp[0, :n_q] = q_np
-        q, ref = torch.tensor(qp, device=dev), torch.tensor(refp, device=dev)
-        nq_t, nr_t = torch.tensor([n_q], **i32), torch.tensor([n_ref_i], **i32)
-        mask = torch.arange(M, device=dev) < n_ref_i
-        t_lo, t_hi = KN.tile_windows(q[0, :, 0], nq_t[0], ref[0, :, 0], mask,
-                                     256, 512, 1.0 + 1e-3)
-        t_lo, t_hi = t_lo[None].contiguous(), t_hi[None].contiguous()
-        run_k = lambda: KN._launch(q, ref, nq_t, nr_t, 5, t_lo, t_hi, 256,
-                                   512)
-        run_p = lambda: KN.knn_topk_plain(q, ref, nq_t, nr_t, 5, t_lo, t_hi,
+        run_k = lambda: KN._launch(q, ref, n_q, n_ref, 1, t_lo, t_hi, 256, 512)
+        run_p = lambda: KN.knn_topk_plain(q, ref, n_q, n_ref, 1, t_lo, t_hi,
                                           tq=256, tm=512)
-        err = max(err, _compare("knn_topk_dyn", run_k(), run_p(), 1))
-        ms = dict(ms=time_ms(run_k), plain_ms=time_ms(run_p))
-    rows.append(dict(name="knn_topk_dyn",
-                     source="loam_tpu_torch/csrc/knn_topk.cu",
-                     replaces="loam_tpu/ops/pallas/knn_topk.py:133",
-                     max_abs_err=err, shape="Q=8192,M=65536,k=5", **ms))
+        shapes.append(dict(
+            shape=f"Q={Q},M={M},live={live},k=1",
+            max_abs_err=_compare("knn_topk", run_k(), run_p(), 1),
+            ms=time_ms(run_k), plain_ms=time_ms(run_p),
+            library_ms=time_ms(lambda: _library_knn(q[0], ref[0, :live], 1)),
+            **bound(12 * (Q + live) + 8 * Q, PAIR_OPS * Q * live)))
+    add("knn_topk", "knn_topk", "loam_tpu_torch/csrc/knn_topk.cu",
+        "loam_tpu/ops/pallas/knn_topk.py:63", shapes)
+
+    # ---- knn_topk_dyn with tile windows: the mapping 5-NN (margin 1 m)
+    # and the hybrid cadence's 8-candidate gather (margin 2 m)
+    for k, margin, name in ((5, 1.0, "knn_topk_dyn"),
+                            (8, 2.0, "knn_topk_dyn_k8")):
+        shapes = []
+        sizes = ((2048, 32768, 1500, 25000), (8192, 65536, 6000, 50000))
+        for Q, M, n_q, n_ref_i in sizes if k == 5 else sizes[1:]:
+            half = np.array([60.0, 20.0, 5.0])
+            ref_np = rng.uniform(-half, half, (n_ref_i, 3)).astype(np.float32)
+            ref_np = ref_np[np.argsort(ref_np[:, 0], kind="stable")]
+            refp = np.zeros((1, M, 3), np.float32)
+            refp[0, :n_ref_i] = ref_np
+            q_np = ref_np[rng.integers(0, n_ref_i, n_q)] + rng.normal(
+                0, 0.3, (n_q, 3))
+            q_np = q_np[np.argsort(q_np[:, 0], kind="stable")]
+            qp = np.zeros((1, Q, 3), np.float32)
+            qp[0, :n_q] = q_np
+            q = torch.tensor(qp, device=dev)
+            ref = torch.tensor(refp, device=dev)
+            nq_t = torch.tensor([n_q], **i32)
+            nr_t = torch.tensor([n_ref_i], **i32)
+            mask = torch.arange(M, device=dev) < n_ref_i
+            tq, tm = 256, 512
+            t_lo, t_hi = KN.tile_windows(q[0, :, 0], nq_t[0], ref[0, :, 0],
+                                         mask, tq, tm, margin + 1e-3)
+            t_lo, t_hi = t_lo[None].contiguous(), t_hi[None].contiguous()
+            run_k = lambda: KN._launch(q, ref, nq_t, nr_t, k, t_lo, t_hi, tq,
+                                       tm)
+            run_p = lambda: KN.knn_topk_plain(q, ref, nq_t, nr_t, k, t_lo,
+                                              t_hi, tq=tq, tm=tm)
+            # references each live query block really scans
+            blocks = -(-n_q // tq)
+            seen = (torch.clamp(t_hi[0, :blocks].long() * tm, max=n_ref_i)
+                    - t_lo[0, :blocks].long() * tm).clamp(min=0)
+            pairs = int(seen.sum()) * tq
+            shapes.append(dict(
+                shape=f"Q={Q},M={M},live={n_q}x{n_ref_i},k={k},"
+                      f"pairs={pairs}",
+                max_abs_err=_compare(name, run_k(), run_p(), 1),
+                ms=time_ms(run_k), plain_ms=time_ms(run_p),
+                # materialises the live (n_q, n_ref) matrix: 1.2 GB here
+                library_ms=time_ms(lambda: _library_knn(
+                    q[0, :n_q], ref[0, :n_ref_i], k), reps=5),
+                **bound(12 * (n_q + n_ref_i) + 8 * k * blocks * tq,
+                        PAIR_OPS * pairs)))
+        add(name, "knn_topk_dyn", "loam_tpu_torch/csrc/knn_topk.cu",
+            "loam_tpu/ops/pallas/knn_topk.py:133", shapes)
 
     # ---- odom_corr: corner then surf walks on a ring-sorted cloud
-    err = 0.0
+    shapes = []
     for Q, M, surf in ((256, 2048, False), (512, 16384, True)):
         live = M * 2 // 3
         rings = np.zeros((1, M), np.int32)
@@ -184,16 +260,26 @@ def kernel_phase(dev, raw, msk, cfg):
         q = (ref[:, j1[0].clamp(min=0).long()]
              + torch.tensor(rng.normal(0, 0.3, (1, Q, 3)), device=dev)
              ).float().contiguous()
-        args = (q, ref, torch.tensor(rings, device=dev), j1,
-                torch.tensor([Q * 3 // 4], **i32), torch.tensor([live], **i32))
+        ring_t = torch.tensor(rings, device=dev)
+        n_q, n_ref = torch.tensor([Q * 3 // 4], **i32), \
+            torch.tensor([live], **i32)
+        args = (q, ref, ring_t, j1, n_q, n_ref)
         kw = dict(surf=surf, window=cfg.ring_window, truncate=True)
         run_k = lambda: OC._launch(*args, **kw)
         run_p = lambda: OC.odom_corr_plain(*args, **kw)
-        err = max(err, _compare("odom_corr", run_k(), run_p(), 2))
-        ms = dict(ms=time_ms(run_k), plain_ms=time_ms(run_p))
-    rows.append(dict(name="odom_corr", source="loam_tpu_torch/csrc/odom_corr.cu",
-                     replaces="loam_tpu/ops/pallas/odom_corr.py:65",
-                     max_abs_err=err, shape="Q=512,M=16384,surf", **ms))
+        up, dn, _, _ = OC.walk_masks(ring_t, j1, n_q, n_ref,
+                                     window=cfg.ring_window, truncate=True)
+        visited = int(up.sum()) + int(dn.sum())
+        shapes.append(dict(
+            shape=f"Q={Q},M={M},live={live},{'surf' if surf else 'corner'},"
+                  f"visited={visited}",
+            max_abs_err=_compare("odom_corr", run_k(), run_p(), 2),
+            ms=time_ms(run_k), plain_ms=time_ms(run_p), library_ms=None,
+            # + a ring compare per visited point
+            **bound(12 * Q + 16 * live + 4 * Q + 16 * Q,
+                    (PAIR_OPS + 1) * visited)))
+    add("odom_corr", "odom_corr", "loam_tpu_torch/csrc/odom_corr.cu",
+        "loam_tpu/ops/pallas/odom_corr.py:65", shapes)
 
     # ---- select_walk: every ring of every frame of the replay
     sweep = frontend.ingest_sweep(torch.tensor(raw, device=dev),
@@ -210,38 +296,88 @@ def kernel_phase(dev, raw, msk, cfg):
               max_flat=cfg.max_flat_per_subregion)
     run_k = lambda: SW._launch(cm, fm, p0, **kw)
     run_p = lambda: SW.select_walk_plain(cm, fm, p0, **kw)
-    err = _compare("select_walk", run_k(), run_p(), 4)
-    rows.append(dict(name="select_walk",
-                     source="loam_tpu_torch/csrc/select_walk.cu",
-                     replaces="loam_tpu/ops/pallas/select_walk.py:81",
-                     max_abs_err=err, shape=f"R={cm.shape[1]},W={W}",
-                     ms=time_ms(run_k), plain_ms=time_ms(run_p)))
+    R = cm.shape[1]
+    # a walk reads its in-span meta words (bit 17) at most once, about 20
+    # integer operations a step; one bit-field in, four out
+    steps = int(((cm >> 17) & 1).sum()) + int(((fm >> 17) & 1).sum())
+    add("select_walk", "select_walk", "loam_tpu_torch/csrc/select_walk.cu",
+        "loam_tpu/ops/pallas/select_walk.py:81", [dict(
+            shape=f"R={R},W={W},steps={steps}",
+            max_abs_err=_compare("select_walk", run_k(), run_p(), 4),
+            ms=time_ms(run_k), plain_ms=time_ms(run_p, reps=5),
+            library_ms=None,
+            **bound(4 * steps + 5 * 4 * R * (W // 32), 20 * steps))])
+
+    # ---- kselect: the hybrid re-rank (C=8), the cell re-rank (C=24) and
+    # the 27-cell gather chunk (C=864: ~60% valid, the second half of
+    # every row's cells duplicated, some rows with fewer than k valid)
+    shapes = []
+    for Q, C, k in ((8192, 8, 5), (8192, 24, 5), (2048, 864, 24)):
+        q_np = rng.uniform(-30, 30, (Q, 3)).astype(np.float32)
+        cand_np = (q_np[:, None, :]
+                   + rng.normal(0, 0.8, (Q, C, 3))).astype(np.float32)
+        valid_np = rng.uniform(size=(Q, C)) < 0.6
+        if C == 864:
+            cand_np[:, C // 2:] = cand_np[:, :C // 2]
+            valid_np[::7, k - 4:] = False       # fewer than k valid
+            valid_np[::64] = False              # none at all
+        cand = torch.tensor(cand_np, device=dev)
+        valid = torch.tensor(valid_np, device=dev)
+        q = torch.tensor(q_np, device=dev)
+        run_k = lambda: KS._launch(cand, valid, q, k)
+        run_p = lambda: KS.knn_select_plain(cand, valid, q, k)
+
+        def run_lib():
+            d2, idx = KS.masked_sq_dists(cand, valid, q).topk(
+                k, dim=1, largest=False)
+            return torch.gather(cand, 1, idx[..., None].expand(-1, -1, 3)), d2
+
+        n_valid = int(valid.sum())
+        shapes.append(dict(
+            shape=f"Q={Q},C={C},k={k},valid={n_valid}",
+            max_abs_err=_compare("kselect", run_k(), run_p(), 1),
+            ms=time_ms(run_k), plain_ms=time_ms(run_p),
+            library_ms=time_ms(run_lib),
+            # 8 flops a valid candidate, then k scans of C compares
+            **bound(Q * C * 13 + Q * 12 + Q * k * 16,
+                    8 * n_valid + Q * C * k)))
+    add("kselect", "knn_select", "loam_tpu_torch/csrc/kselect.cu",
+        "loam_tpu/ops/pallas/kselect.py:33", shapes)
     torch.cuda.synchronize()
     return rows
 
 
-def main_path(dev, raw, msk, cfg):
-    """The default replay on the card; returns (outputs, launch counts,
-    seconds)."""
+def replay(name, raw_t, msk_t):
+    """One replay on the card after a 3-frame warm-up; returns (outputs,
+    launch counts, seconds).  Raises when a kernel of this replay's path
+    was not launched, or one outside it was."""
     from loam_tpu_torch import pipeline
     from loam_tpu_torch.ops.cuda import knn_topk as KN
+    from loam_tpu_torch.ops.cuda import kselect as KS
     from loam_tpu_torch.ops.cuda import odom_corr as OC
     from loam_tpu_torch.ops.cuda import select_walk as SW
 
-    raw_t = torch.tensor(raw, device=dev)
-    msk_t = torch.tensor(msk, device=dev)
+    cfg = replay_config(name)
+    _, required, forbidden = REPLAYS[name]
     # warm-up (library handles, allocator) on the first frames, uncounted
     pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg)
     torch.cuda.synchronize()
     wrappers = {"knn_topk": KN.knn_topk, "knn_topk_dyn": KN.knn_topk_dyn,
-                "odom_corr": OC.odom_corr, "select_walk": SW.select_walk}
+                "odom_corr": OC.odom_corr, "select_walk": SW.select_walk,
+                "knn_select": KS.knn_select}
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
     outs = pipeline.replay_sweeps(raw_t, msk_t, cfg)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts = {n: fn.launches for n, fn in wrappers.items()}
+    missing = [n for n in required if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"{name} replay never launched {missing}")
+    stray = [n for n in forbidden if counts[n] > 0]
+    if stray:
+        raise AssertionError(f"{name} replay launched {stray}")
     return outs, counts, seconds
 
 
@@ -251,7 +387,6 @@ def main() -> int:
                          "is_available() is False)")
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tests"))
-    from loam_tpu.config import LoamConfig
     from loam_tpu_torch import configure_numerics, metrics
     from loam_tpu_torch.ops.cuda import _build
 
@@ -259,49 +394,64 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda", 0)
     configure_numerics()
-    cfg = LoamConfig()
 
     secs = _build.build_all()
     print(f"built {len(_build.KERNEL_SOURCES)} kernel libraries in "
           f"{secs:.1f} s", flush=True)
 
     raw, msk = make_sweeps()
-    rows = kernel_phase(dev, raw, msk, cfg)
+    rows = kernel_phase(dev, raw, msk, replay_config("default"))
     for r in rows:
-        print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g}, "
-              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms "
-              f"({r['shape']})", flush=True)
-
-    outs, counts, seconds = main_path(dev, raw, msk, cfg)
-    print(f"main path launches: {counts}", flush=True)
-    for r in rows:
-        r["route"] = "cuda"
-        r["launches"] = counts[r["name"]]
-    missing = [n for n, c in counts.items() if c <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    poses = outs.pose_integrated.cpu().numpy()
-    if not np.isfinite(poses).all():
-        raise AssertionError("non-finite poses")
+        for s in r["other_shapes"] + [r]:
+            lib = "none" if s["library_ms"] is None \
+                else f"{s['library_ms']:.4f} ms"
+            print(f"kernel {r['name']}: max_abs_err {s['max_abs_err']:.3g}, "
+                  f"{s['ms']:.4f} ms vs plain {s['plain_ms']:.4f} ms, "
+                  f"library {lib}, bound {s['bound_ms']:.6f} ms by "
+                  f"{s['bound_by']} ({s['shape']}) [{card}]", flush=True)
 
     from golden.pipeline import run_pipeline
 
     oracle = run_pipeline(raw, msk)
-    ate = metrics.ate_rmse(poses[:, 3:6], oracle["integrated"][:, 3:6])
-    mapped_ok = np.array_equal(outs.mapped.cpu().numpy(), oracle["mapped"])
-    fps = FRAMES / seconds
-    print(f"replay: {FRAMES} frames in {seconds:.3f} s = {fps:.2f} frames/s; "
-          f"integrated ATE vs golden oracle {100 * ate:.3f} cm; "
-          f"mapping cadence equal: {mapped_ok} [{card}]", flush=True)
-    if not ate < ATE_GATE:
-        raise AssertionError(f"integrated ATE {ate:.4f} m >= {ATE_GATE} m")
-    if not mapped_ok:
-        raise AssertionError("mapping cadence differs from the oracle")
+    raw_t = torch.tensor(raw, device=dev)
+    msk_t = torch.tensor(msk, device=dev)
+    launches = {}
+    for name in REPLAYS:
+        outs, counts, seconds = replay(name, raw_t, msk_t)
+        launches[name] = counts
+        poses = outs.pose_integrated.cpu().numpy()
+        if not np.isfinite(poses).all():
+            raise AssertionError(f"{name} replay: non-finite poses")
+        ate = metrics.ate_rmse(poses[:, 3:6], oracle["integrated"][:, 3:6])
+        mapped_ok = np.array_equal(outs.mapped.cpu().numpy(),
+                                   oracle["mapped"])
+        print(f"replay {name}: {FRAMES} frames in {seconds:.3f} s = "
+              f"{FRAMES / seconds:.2f} frames/s; integrated ATE vs golden "
+              f"oracle {100 * ate:.3f} cm; mapping cadence equal: "
+              f"{mapped_ok}; launches {counts} [{card}]", flush=True)
+        if not ate < ATE_GATE:
+            raise AssertionError(
+                f"{name} replay: integrated ATE {ate:.4f} m >= {ATE_GATE} m")
+        if not mapped_ok:
+            raise AssertionError(
+                f"{name} replay: mapping cadence differs from the oracle")
 
-    print(json.dumps({"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms", "shape")}
-        for r in rows]}))
+    # the windowed k-NN runs at k=5 in the default replay only and at k=8
+    # in the hybrid replay only; every other count sums over the replays
+    for r in rows:
+        if r["name"] == "knn_topk_dyn":
+            r["launches"] = launches["default"]["knn_topk_dyn"]
+        elif r["name"] == "knn_topk_dyn_k8":
+            r["launches"] = launches["hybrid"]["knn_topk_dyn"]
+        else:
+            r["launches"] = sum(c[r["counter"]] for c in launches.values())
+        if r["launches"] <= 0:
+            raise AssertionError(f"no replay launched {r['name']}")
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "other_shapes")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ Same module names as ``loam_tpu`` so each counterpart is easy to find;
 plain functions on tensors, dataclasses of tensors for the containers,
 and hand-written CUDA kernels (``csrc/*.cu``, wrapped in ``ops/cuda/``)
 where the JAX package runs Pallas kernels on the TPU.  The package
-imports ``torch`` and never ``jax``; of ``loam_tpu`` it uses only the
-framework-free ``config`` and ``io.synth`` modules.
+imports ``torch``, never ``jax`` and nothing of ``loam_tpu``: it keeps
+its own ``config`` and ``io.synth``.  Its entry points run on the CUDA
+device unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -21,3 +22,16 @@ def configure_numerics() -> None:
     (the same reason the JAX package asks for Precision.HIGHEST)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means the CUDA
+    device, and raises where there is none (never a silent CPU run)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "loam_tpu_torch runs on a CUDA device by default and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to "
+            "run on the CPU")
+    return torch.device("cuda")

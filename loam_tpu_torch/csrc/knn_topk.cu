@@ -2,7 +2,8 @@
 //
 // Replaces: loam_tpu/ops/pallas/knn_topk.py:_knn_kernel (k=1, the
 // odometry 1-NN) and :_knn_kernel_dyn (k=5, the pruned mapping 5-NN
-// with live query blocks and per-block reference-tile windows).
+// with live query blocks and per-block reference-tile windows; k=8,
+// the hybrid cadence's candidate gather).
 //
 // What bounds it on the H100: fp32 CUDA-core arithmetic and issue
 // slots, not bytes.  Each query/reference pair costs 3 subtractions,
@@ -149,7 +150,8 @@ int launch(const float* q, const float* ref, const int32_t* n_q,
 
 // q (B, Q, 3), ref (B, M, 3) float32; n_q, n_ref (B,) int32 live counts;
 // t_lo, t_hi (B, Q/tq) int32 tile windows; outputs d2 (B, Q, K) float32
-// and idx (B, Q, K) int32, nearest first.  Q must be a multiple of tq.
+// and idx (B, Q, K) int32, nearest first.  K is 1, 5 or 8; Q must be a
+// multiple of tq.
 // Returns cudaGetLastError().
 extern "C" int knn_topk_launch(const void* q, const void* ref,
                                const void* n_q, const void* n_ref,
@@ -172,6 +174,8 @@ extern "C" int knn_topk_launch(const void* q, const void* ref,
       return launch<1>(qf, rf, nq, nr, lo, hi, d, i, B, Q, M, tq, tm, s);
     case 5:
       return launch<5>(qf, rf, nq, nr, lo, hi, d, i, B, Q, M, tq, tm, s);
+    case 8:
+      return launch<8>(qf, rf, nq, nr, lo, hi, d, i, B, Q, M, tq, tm, s);
     default:
       return cudaErrorInvalidValue;
   }

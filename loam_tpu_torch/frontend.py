@@ -8,8 +8,7 @@ import math
 
 import torch
 
-from loam_tpu.config import LoamConfig
-
+from .config import LoamConfig
 from .types import Sweep
 from .utils.numerics import sqrt
 

@@ -16,8 +16,8 @@ import dataclasses
 
 import torch
 
-from loam_tpu.config import LoamConfig
-
+from . import resolve_device
+from .config import LoamConfig
 from .ops import residuals
 from .ops.cuda.odom_corr import odom_correspondences
 from .ops.deskew import transform_to_end, transform_to_start
@@ -38,6 +38,8 @@ class OdomState:
 
     @staticmethod
     def create(cfg: LoamConfig, device=None) -> "OdomState":
+        """device: None is the CUDA device (raises without one)."""
+        device = resolve_device(device)
         return OdomState(
             corner_last=PointCloud.zeros(cfg.max_less_sharp, device),
             surf_last=PointCloud.zeros(cfg.max_less_flat, device),

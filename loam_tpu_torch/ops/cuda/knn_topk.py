@@ -22,7 +22,7 @@ import torch
 from ..nn import BIG, pairwise_sq_dists
 from . import _build
 
-KERNEL_K = (1, 5)
+KERNEL_K = (1, 5, 8)   # the kernel's template instantiations
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
@@ -68,7 +68,8 @@ def _launch(q, ref, n_q, n_ref, k, t_lo, t_hi, tq, tm):
     B, Q, _ = q.shape
     M = ref.shape[1]
     if k not in KERNEL_K or Q % tq or tq > 1024:
-        raise ValueError(f"knn kernel: unsupported k={k} tq={tq} Q={Q}")
+        raise ValueError(f"knn kernel: unsupported k={k} tq={tq} Q={Q} "
+                         f"(k must be one of {KERNEL_K})")
     nqb = Q // tq
     _build.require(q, torch.float32, (B, Q, 3), "q")
     _build.require(ref, torch.float32, (B, M, 3), "ref")

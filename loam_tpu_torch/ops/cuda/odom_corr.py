@@ -25,13 +25,11 @@ _ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 3 + (
 from .knn_topk import knn_topk, recenter, tile
 
 
-def odom_corr_plain(q, ref, ring, j1, n_q, n_ref, *, surf: bool,
-                    window: float, truncate: bool):
-    """The walk rules as (B, Q, M) masks: break positions, then a
-    first-occurrence argmin over the eligible columns."""
-    B, Q, _ = q.shape
-    M = ref.shape[1]
-    col = torch.arange(M, device=q.device)[None, None, :]
+def walk_masks(ring, j1, n_q, n_ref, *, window: float, truncate: bool):
+    """The columns each query's walk visits, as (B, Q, M) masks (up,
+    down), with the 1-NN's ring (B, Q, 1) and the rings (B, 1, M)."""
+    M = ring.shape[1]
+    col = torch.arange(M, device=ring.device)[None, None, :]
     ring_f = ring.to(torch.float32)[:, None, :]                   # (B, 1, M)
     has1 = (j1 >= 0)[..., None]
     j1c = j1.clamp(min=0).long()
@@ -48,6 +46,15 @@ def odom_corr_plain(q, ref, ring, j1, n_q, n_ref, *, surf: bool,
     if truncate:
         up = up & (col < n_q[:, None, None])
     dn = (col < jq) & (col > brk_dn) & live & has1
+    return up, dn, cr, ring_f
+
+
+def odom_corr_plain(q, ref, ring, j1, n_q, n_ref, *, surf: bool,
+                    window: float, truncate: bool):
+    """The walk rules as (B, Q, M) masks: break positions, then a
+    first-occurrence argmin over the eligible columns."""
+    up, dn, cr, ring_f = walk_masks(ring, j1, n_q, n_ref, window=window,
+                                    truncate=truncate)
     d2 = pairwise_sq_dists(q, ref)
     if surf:
         el2 = (up & (ring_f <= cr)) | (dn & (ring_f >= cr))

@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from loam_tpu.config import LoamConfig
-
+from ..config import LoamConfig
 from ..types import FeatureClouds, PointCloud, Sweep
 from ..utils.numerics import sqrt
 from .compact import compact_masked

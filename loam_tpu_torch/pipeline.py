@@ -13,9 +13,9 @@ import dataclasses
 
 import torch
 
-from loam_tpu.config import LoamConfig
-
-from . import configure_numerics, frontend, mapping, odometry
+from . import (configure_numerics, frontend, mapping, odometry,
+               resolve_device)
+from .config import LoamConfig
 from .ops.features import check_selection_config, extract_features
 from .types import FeatureClouds
 from .utils import rotations
@@ -28,6 +28,8 @@ class PipelineState:
 
     @staticmethod
     def create(cfg: LoamConfig, device=None) -> "PipelineState":
+        """device: None is the CUDA device (raises without one)."""
+        device = resolve_device(device)
         return PipelineState(odom=odometry.OdomState.create(cfg, device),
                              map=mapping.MapState.create(cfg, device))
 
@@ -89,19 +91,24 @@ def _stack(outs):
 def replay_sweeps(raw_xyz, raw_mask, cfg: LoamConfig = LoamConfig(),
                   imu_streams=None, t_scans=None, *,
                   state0: PipelineState | None = None,
-                  return_state: bool = False):
-    """Sequential replay of raw sweeps raw_xyz (F, N, 3), raw_mask (F, N)
-    on their device.  Returns FrameOutput with a leading F axis (and the
-    final PipelineState with return_state=True)."""
+                  return_state: bool = False, device=None):
+    """Sequential replay of raw sweeps raw_xyz (F, N, 3), raw_mask (F, N),
+    NumPy arrays or tensors on any device, moved to `device`: None is
+    the CUDA device (a RuntimeError without one), "cpu" asks for the
+    CPU.  A state0 must already live there.  Returns FrameOutput with a
+    leading F axis (and the final PipelineState with return_state=True)."""
     if imu_streams is not None or t_scans is not None:
         raise NotImplementedError(
             "IMU streams are not ported yet (ROADMAP.md, queue 1 item 8)")
     check_config(cfg)
+    device = resolve_device(device)
     configure_numerics()
+    raw_xyz = torch.as_tensor(raw_xyz, dtype=torch.float32).to(device)
+    raw_mask = torch.as_tensor(raw_mask, dtype=torch.bool).to(device)
     sweeps = frontend.ingest_sweep(raw_xyz, raw_mask, cfg)
     feats = extract_features(sweeps, cfg)
     state = state0 if state0 is not None else \
-        PipelineState.create(cfg, raw_xyz.device)
+        PipelineState.create(cfg, device)
     outs = []
     for k in range(raw_xyz.shape[0]):
         state, out = pipeline_step(state, feats.map(lambda t: t[k]), cfg)
@@ -112,19 +119,23 @@ def replay_sweeps(raw_xyz, raw_mask, cfg: LoamConfig = LoamConfig(),
 
 def replay_features_cadenced(feats: FeatureClouds,
                              cfg: LoamConfig = LoamConfig(),
-                             state0: PipelineState | None = None):
+                             state0: PipelineState | None = None,
+                             device=None):
     """Replay pre-extracted features (leading F axis, F = 1 + n *
     (skip_frame_num + 1)) with the mapping cadence resolved statically
-    from the frame index.  Returns (FrameOutput, final PipelineState)."""
+    from the frame index, on `device` (None: the CUDA device, as in
+    replay_sweeps).  Returns (FrameOutput, final PipelineState)."""
     F = feats.sharp.mask.shape[0]
     period = cfg.skip_frame_num + 1
     if (F - 1) % period:
         raise ValueError(f"F={F} must be 1 + n*{period} for the static "
                          "cadence")
     check_config(cfg)
+    device = resolve_device(device)
     configure_numerics()
+    feats = feats.map(lambda t: t.to(device))
     state = state0 if state0 is not None else \
-        PipelineState.create(cfg, feats.sharp.xyz.device)
+        PipelineState.create(cfg, device)
     outs = []
     for k in range(F):
         state, out = pipeline_step(state, feats.map(lambda t: t[k]), cfg,

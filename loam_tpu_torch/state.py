@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import resolve_device
 from .map_store import VoxelTable
 from .mapping import MapState
 from .odometry import OdomState
@@ -51,6 +52,8 @@ def _build(cls, tree, device):
 
 
 def pipeline_state_from_numpy(tree, device=None) -> PipelineState:
+    """device: None is the CUDA device (raises without one)."""
+    device = resolve_device(device)
     return PipelineState(odom=_build(OdomState, tree["odom"], device),
                          map=_build(MapState, tree["map"], device))
 

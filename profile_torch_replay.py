@@ -1,14 +1,18 @@
 """Where the time goes in the port's replay on one NVIDIA GPU.
 
-    python3 profile_torch_replay.py
+    python3 profile_torch_replay.py [default|hybrid|cells ...]
 
-Replays chip_smoke.py's 13 full-density synthetic sweeps with
-LoamConfig() through loam_tpu_torch and prints, after a warm-up replay:
+Replays chip_smoke.py's 13 full-density synthetic sweeps through
+loam_tpu_torch in each named mapping mode (chip_smoke.REPLAYS; all
+three when none is named) and prints, after a warm-up replay:
   * seconds per stage (ingest, feature extraction, odometry, mapping),
     with a synchronise around each stage;
+  * host reads a mapping frame: scalar reads (bool()/int() of a device
+    tensor) and stream or device synchronisations the profiler saw
+    inside mapping_step, over the mapping frames that solved;
   * a torch.profiler pass: device time by kernel, the device events
-    counted, the four hand-written kernels' share, and the device busy
-    share against an unprofiled replay's wall time;
+    counted, the hand-written kernels' share, and the device busy share
+    against an unprofiled replay's wall time;
   * peak device memory.
 Every line that carries a time names the card and its power limit.
 """
@@ -23,7 +27,10 @@ import torch
 
 import chip_smoke as CS
 
-HAND_WRITTEN = ("knn_kernel", "odom_corr_kernel", "select_walk_kernel")
+HAND_WRITTEN = ("knn_kernel", "odom_corr_kernel", "select_walk_kernel",
+                "kselect_kernel")
+SCALAR_READ = "aten::_local_scalar_dense"
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 
 
 def _now() -> float:
@@ -31,7 +38,16 @@ def _now() -> float:
     return time.perf_counter()
 
 
-def stage_seconds(raw_t, msk_t, cfg, dev):
+def _count(prof, keys) -> int:
+    return sum(e.count for e in prof.key_averages() if e.key in keys)
+
+
+def stage_seconds(raw_t, msk_t, cfg, dev, count_reads: bool = False):
+    """Seconds per stage; with count_reads each mapping_step runs under
+    its own profiler and the host reads are returned in place of the
+    times (which the profiler distorts)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from loam_tpu_torch import frontend, mapping, odometry, pipeline
     from loam_tpu_torch.ops.features import extract_features
 
@@ -41,7 +57,7 @@ def stage_seconds(raw_t, msk_t, cfg, dev):
     feats = extract_features(sweeps, cfg)
     t2 = _now()
     state = pipeline.PipelineState.create(cfg, dev)
-    odo, maps = 0.0, []
+    odo, maps, reads, syncs = 0.0, [], [], []
     for k in range(raw_t.shape[0]):
         a = _now()
         odom_state, out = odometry.odometry_step(
@@ -49,38 +65,41 @@ def stage_seconds(raw_t, msk_t, cfg, dev):
         b = _now()
         odo += b - a
         map_state = state.map
-        if bool(out.publish_to_mapping):
+        if bool(out.publish_to_mapping) and count_reads:
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                map_state, mout = mapping.mapping_step(
+                    state.map, out.pose, out.corner_last, out.surf_last, cfg)
+                torch.cuda.synchronize()
+            if bool(mout.solved):
+                reads.append(_count(prof, (SCALAR_READ,)))
+                syncs.append(_count(prof, SYNC_CALLS) - 1)   # less our own
+        elif bool(out.publish_to_mapping):
             map_state, _ = mapping.mapping_step(
                 state.map, out.pose, out.corner_last, out.surf_last, cfg)
             maps.append(_now() - b)
         state = pipeline.PipelineState(odom=odom_state, map=map_state)
+    if count_reads:
+        return dict(scalar_reads_per_solved_mapping_frame=reads,
+                    sync_calls_per_solved_mapping_frame=syncs)
     return dict(ingest_s=t1 - t0, extract_s=t2 - t1, odometry_s=odo,
                 mapping_s=sum(maps), mapping_frame_s=maps,
                 total_s=_now() - t0)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_torch_replay: no CUDA device")
+def profile_mode(name, raw_t, msk_t, dev, card) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from loam_tpu.config import LoamConfig
-    from loam_tpu_torch import configure_numerics, pipeline
-    from loam_tpu_torch.ops.cuda import _build
+    from loam_tpu_torch import pipeline
 
-    card = CS.card_line()
-    dev = torch.device("cuda", 0)
-    configure_numerics()
-    cfg = LoamConfig()
-    _build.build_all()
-    raw, msk = CS.make_sweeps()
-    raw_t = torch.tensor(raw, device=dev)
-    msk_t = torch.tensor(msk, device=dev)
+    cfg = CS.replay_config(name)
     pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg)
-
+    print(f"== {name} {CS.REPLAYS[name][0]} [{card}]")
     print(f"stages [{card}]", json.dumps(stage_seconds(raw_t, msk_t, cfg,
                                                        dev)), flush=True)
+    print("host reads", json.dumps(stage_seconds(raw_t, msk_t, cfg, dev,
+                                                 count_reads=True)),
+          flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -96,14 +115,35 @@ def main() -> int:
     t0 = _now()
     pipeline.replay_sweeps(raw_t, msk_t, cfg)
     wall = _now() - t0
-    print(f"replay {wall:.4f} s = {raw.shape[0] / wall:.3f} frames/s; "
+    print(f"replay {wall:.4f} s = {raw_t.shape[0] / wall:.3f} frames/s; "
           f"device time {device_s:.4f} s in {sum(r[1] for r in rows)} "
           f"events, busy share {device_s / wall:.4f}; hand-written "
           f"kernels {sum(r[0] for r in mine) / 1e3:.3f} ms in "
           f"{sum(r[1] for r in mine)} launches; peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
-    for us, count, key in rows[:20]:
+    for us, count, key in rows[:12]:
         print(f"  {us / 1e3:10.3f} ms {count:7d}  {key[:100]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_replay: no CUDA device")
+    modes = sys.argv[1:] or list(CS.REPLAYS)
+    unknown = [m for m in modes if m not in CS.REPLAYS]
+    if unknown:
+        raise SystemExit(f"unknown mode {unknown}; one of {list(CS.REPLAYS)}")
+    from loam_tpu_torch import configure_numerics
+    from loam_tpu_torch.ops.cuda import _build
+
+    card = CS.card_line()
+    dev = torch.device("cuda", 0)
+    configure_numerics()
+    _build.build_all()
+    raw, msk = CS.make_sweeps()
+    raw_t = torch.tensor(raw, device=dev)
+    msk_t = torch.tensor(msk, device=dev)
+    for name in modes:
+        profile_mode(name, raw_t, msk_t, dev, card)
     return 0
 
 

@@ -18,9 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from loam_tpu.config import LoamConfig
-
+from loam_tpu_torch.config import LoamConfig
 from loam_tpu_torch.ops.cuda import knn_topk as KN
+from loam_tpu_torch.ops.cuda import kselect as KS
 from loam_tpu_torch.ops.cuda import odom_corr as OC
 from loam_tpu_torch.ops.cuda import select_walk as SW
 
@@ -38,7 +38,7 @@ def _i32(values, dev):
     return torch.tensor(values, dtype=torch.int32, device=dev)
 
 
-@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("k", [1, 5, 8])
 def test_knn_kernel_matches_plain(cuda, k):
     rng = np.random.default_rng(k)
     B, Q, M, tq, tm = 2, 512, 2048, 128, 256
@@ -128,6 +128,65 @@ def test_select_walk_kernel_matches_plain(cuda):
     assert int(out[0].count_nonzero()) > 0 and int(out[2].count_nonzero()) > 0
 
 
+@pytest.mark.parametrize("Q,C,k,frac", [(300, 864, 24, 0.6), (1000, 24, 5, 0.7),
+                                        (1000, 8, 5, 0.5), (37, 130, 3, 0.1),
+                                        (5, 1024, 32, 0.9)])
+def test_kselect_kernel_matches_plain(cuda, Q, C, k, frac):
+    """Coordinates and squared distances equal to the plain version, with
+    duplicated candidates, exact ties (a coarse lattice), rows with fewer
+    than k valid candidates and rows with none."""
+    rng = np.random.default_rng(C + k)
+    half = rng.integers(-3, 4, size=(Q, C // 2, 3)).astype(np.float32) * 0.25
+    cand = np.concatenate([half, half], 1)
+    valid = rng.uniform(size=(Q, C)) < frac
+    valid[::5, k - 1:] = False
+    valid[::11] = False
+    q = rng.integers(-2, 3, size=(Q, 3)).astype(np.float32) * 0.25
+    cand, valid, q = (torch.tensor(a, device=cuda) for a in (cand, valid, q))
+    before = KS.knn_select.launches
+    pts, d2 = KS.knn_select(cand, valid, q, k)
+    assert KS.knn_select.launches == before + 1
+    pts_p, d2_p = KS.knn_select_plain(cand, valid, q, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d2, d2_p) and torch.equal(pts, pts_p)
+    assert (d2[::11] == 1e30).all() and (d2 < 1e29).any()
+
+
+def test_replay_modes_agree_with_cpu(cuda):
+    """Two frames of each mapping mode on the card (kernels) against the
+    same replay on the CPU (plain versions): same cadence, poses within
+    1e-3 m / 1e-4 rad (the card takes the normal-equation sums in
+    another order and the map's index_add atomically; one mapping solve
+    moves by ~2e-4 m, and the recurrence carries it on)."""
+    from loam_tpu_torch import pipeline
+    from loam_tpu_torch.io import synth
+
+    world = synth.make_world(seed=3)
+    poses = synth.straight_trajectory(4, speed=0.9, yaw_rate=0.12)
+    poses = np.vstack([poses[:1], poses])[:5]
+    sweeps = [synth.simulate_sweep(world, poses[i], poses[i + 1],
+                                   n_azimuth=480, seed=3 + i)
+              for i in range(4)]
+    raw = np.stack([s[0] for s in sweeps]).astype(np.float32)
+    msk = np.stack([s[1] for s in sweeps])
+    base = dataclasses.replace(
+        LoamConfig(), ring_width=512, max_less_flat=2048,
+        less_flat_ring_cap=256, corner_table_size=1 << 12,
+        surf_table_size=1 << 13, search_buckets=1 << 10,
+        max_corner_from_map=1024, max_surf_from_map=2048,
+        max_corner_stack=512, max_surf_stack=1024, odom_max_iters=5)
+    for mode in (dict(map_exact_regather_every=5), dict(map_exact_knn=False)):
+        cfg = dataclasses.replace(base, **mode)
+        before = KS.knn_select.launches
+        gpu = pipeline.replay_sweeps(raw, msk, cfg)      # the default device
+        assert gpu.pose_integrated.device.type == "cuda"
+        assert KS.knn_select.launches > before
+        cpu = pipeline.replay_sweeps(raw, msk, cfg, device="cpu")
+        assert torch.equal(gpu.mapped.cpu(), cpu.mapped)
+        diff = (gpu.pose_integrated.cpu() - cpu.pose_integrated).abs()
+        assert diff[:, :3].max() < 1e-4 and diff[:, 3:].max() < 1e-3, diff
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     """A CUDA tensor goes to the kernel or raises; nothing falls back."""
     q = torch.zeros(1, 256, 3, dtype=torch.float64, device=cuda)
@@ -136,3 +195,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         KN.knn_topk(q, ref, _i32([10], cuda), 1, tq=256, tm=512)
     with pytest.raises(ValueError, match="unsupported k"):
         KN.knn_topk(q.float(), ref, _i32([10], cuda), 3, tq=256, tm=512)
+    with pytest.raises(ValueError, match="expected torch.bool"):
+        KS.knn_select(torch.zeros(4, 8, 3, device=cuda),
+                      torch.ones(4, 8, dtype=torch.uint8, device=cuda),
+                      torch.zeros(4, 3, device=cuda), 5)
+    with pytest.raises(ValueError, match="k=9"):
+        KS.knn_select(torch.zeros(4, 8, 3, device=cuda),
+                      torch.ones(4, 8, dtype=torch.bool, device=cuda),
+                      torch.zeros(4, 3, device=cuda), 9)

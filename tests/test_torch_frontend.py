@@ -28,7 +28,7 @@ from loam_tpu_torch.ops import residuals as TR, voxel as TV
 from loam_tpu_torch.types import PointCloud, Sweep
 from loam_tpu_torch.utils import linalg as TL, rotations as TRot
 
-from torch_parity import make_sweeps, parity_cfg
+from torch_parity import make_sweeps, parity_cfg, to_port_cfg
 
 torch.set_num_threads(1)
 
@@ -198,7 +198,7 @@ def test_ingest_sweep_matches(sweeps):
     """Ring ids, ring-major order and masks identical; rel within 2e-6
     (atan2 ulps and the cumsum-based unwrap over ~8k points)."""
     cfg, raw, msk, js = sweeps
-    ts = TF.ingest_sweep(_t(raw), _t(msk), cfg)
+    ts = TF.ingest_sweep(_t(raw), _t(msk), to_port_cfg(cfg))
     np.testing.assert_array_equal(ts.mask.numpy(), np.asarray(js.mask))
     np.testing.assert_array_equal(ts.xyz.numpy(), np.asarray(js.xyz))
     np.testing.assert_allclose(ts.rel.numpy(), np.asarray(js.rel), atol=2e-6)
@@ -211,10 +211,11 @@ def test_selection_labels_match_select_ring(sweeps):
     select_ring, ring by ring."""
     cfg, _, _, js = sweeps
     tsw = Sweep(_t(js.xyz), _t(js.rel), _t(js.mask))
-    curv, gap, pre, counts = TFT.selection_inputs(tsw, cfg)
+    tcfg = to_port_cfg(cfg)
+    curv, gap, pre, counts = TFT.selection_inputs(tsw, tcfg)
     W = cfg.ring_width
     lab_t, _ = TFT.select_rings(curv.reshape(-1, W), gap.reshape(-1, W),
-                                pre.reshape(-1, W), counts.reshape(-1), cfg)
+                                pre.reshape(-1, W), counts.reshape(-1), tcfg)
     S = cfg.n_scans
     lab_j, _ = jax.vmap(
         lambda x, c, g, p, n: JFT.select_ring(x, c, g, p, n, cfg)
@@ -235,7 +236,7 @@ def test_extract_features_matches(sweeps):
     jf = jax.vmap(lambda s: JFT.extract_features(s, cfg))(
         JSweep(js.xyz, js.rel, js.mask))
     tf = TFT.extract_features(Sweep(_t(js.xyz), _t(js.rel), _t(js.mask)),
-                              cfg)
+                              to_port_cfg(cfg))
     for name in ("sharp", "less_sharp", "flat", "full", "less_flat"):
         a, b = getattr(jf, name), getattr(tf, name)
         np.testing.assert_array_equal(b.mask.numpy(), np.asarray(a.mask))
@@ -253,7 +254,7 @@ def test_extract_features_matches(sweeps):
 @pytest.mark.parametrize("field,value", [("select_argmax", True),
                                          ("corner_scan_k", 10)])
 def test_unported_selection_configs_raise(field, value):
-    cfg = dataclasses.replace(parity_cfg(), **{field: value})
+    cfg = to_port_cfg(dataclasses.replace(parity_cfg(), **{field: value}))
     s = Sweep(torch.zeros(1, 16, 512, 3), torch.zeros(1, 16, 512),
               torch.zeros(1, 16, 512, dtype=torch.bool))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -31,6 +31,8 @@ from loam_tpu_torch.ops.cuda import knn_topk as TKN
 from loam_tpu_torch.ops.cuda import odom_corr as TOC
 from loam_tpu_torch.ops.cuda import select_walk as TSW
 
+from torch_parity import to_port_cfg
+
 torch.set_num_threads(1)
 
 
@@ -218,7 +220,8 @@ def test_select_walk_plain_matches_pallas_and_select_ring(W, seed):
     walk (interpret) and the JAX default select_ring, bit for bit."""
     cfg = dataclasses.replace(LoamConfig(), ring_width=W)
     curv, gap, pre, n = _ring_case(8, W, seed)
-    lab_t, pick_t = TFT.select_rings(_t(curv), _t(gap), _t(pre), _t(n), cfg)
+    lab_t, pick_t = TFT.select_rings(_t(curv), _t(gap), _t(pre), _t(n),
+                                     to_port_cfg(cfg))
     lab_k, pick_k = JFT.select_rings_walk(
         jnp.asarray(curv), jnp.asarray(gap), jnp.asarray(pre),
         jnp.asarray(n), cfg, interpret=True)

@@ -26,8 +26,9 @@ from loam_tpu_torch.state import (pipeline_state_from_numpy,
                                   pipeline_state_to_numpy)
 from loam_tpu_torch.types import PointCloud
 
-from torch_parity import (cloud_to_torch, make_sweeps, parity_cfg,
-                          pose_errors, tree_to_numpy)
+from torch_parity import (assert_same_map as _assert_same_map,
+                          cloud_to_torch, make_sweeps, parity_cfg,
+                          pose_errors, to_port_cfg, tree_to_numpy)
 
 torch.set_num_threads(1)
 
@@ -51,28 +52,11 @@ def mid_run():
     return cfg, st, odom_out
 
 
-def _table_set(key_hi, key_lo, centroids):
-    key_hi = np.asarray(key_hi).astype(np.int64)
-    live = key_hi != 0xFFFFFFFF
-    keys = key_hi[live] * (1 << 32) + np.asarray(key_lo).astype(np.int64)[live]
-    return dict(zip(keys.tolist(), np.asarray(centroids)[live]))
-
-
-def _assert_same_map(jtable, ttable):
-    a = _table_set(jtable.key_hi, jtable.key_lo, jtable.centroids())
-    b = _table_set(ttable.key_hi.numpy(), ttable.key_lo.numpy(),
-                   ttable.centroids().numpy())
-    assert a.keys() == b.keys()
-    keys = sorted(a)
-    np.testing.assert_allclose(np.array([b[k] for k in keys]),
-                               np.array([a[k] for k in keys]), atol=1e-4)
-    return len(keys)
-
-
 def test_state_roundtrip(mid_run):
     _, st, _ = mid_run
     tree = tree_to_numpy(st)
-    back = pipeline_state_to_numpy(pipeline_state_from_numpy(tree))
+    back = pipeline_state_to_numpy(pipeline_state_from_numpy(tree,
+                                                             device="cpu"))
     flat_a = jax.tree_util.tree_leaves(tree)
     flat_b = jax.tree_util.tree_leaves(back)
     assert len(flat_a) == len(flat_b)
@@ -102,7 +86,9 @@ def test_hash_aggregate_insert_match():
     np.testing.assert_array_equal(ta[3].numpy(), np.asarray(ja[3]))
     np.testing.assert_allclose(ta[2].numpy(), np.asarray(ja[2]), atol=1e-4)
     jt = JM.table_insert(JM.VoxelTable.create(cfg.surf_table_size), *ja, cfg)
-    tt = TM.table_insert(TM.VoxelTable.create(cfg.surf_table_size), *ta, cfg)
+    tt = TM.table_insert(TM.VoxelTable.create(cfg.surf_table_size,
+                                              device="cpu"),
+                         *ta, to_port_cfg(cfg))
     # 1616 voxels into 8192 slots: a bucket whose ways fill up within the
     # insert rounds drops its late claimants, in both packages alike
     n_voxels = int(np.asarray(ja[4]).sum())
@@ -120,14 +106,15 @@ def test_local_map_matches(mid_run):
                                      ).astype(jnp.int32), jnp.asarray(tobe),
                            cfg)
     center = TM.center_cube(_t(tobe))
-    tc = TM.local_cube_fov(center, _t(tobe), cfg)
+    tcfg = to_port_cfg(cfg)
+    tc = TM.local_cube_fov(center, _t(tobe), tcfg)
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-    tstate = pipeline_state_from_numpy(tree_to_numpy(st))
+    tstate = pipeline_state_from_numpy(tree_to_numpy(st), device="cpu")
     jl = JM.local_map_points(st.map.surf_map, jnp.asarray(center.numpy(),
                                                           jnp.int32),
                              jc, cfg.max_surf_from_map, cfg)
     tl = TM.local_map_points(tstate.map.surf_map, center, tc,
-                             cfg.max_surf_from_map, cfg)
+                             cfg.max_surf_from_map, tcfg)
     assert int(tl.n_local) == int(jl.n_local) > 100
     assert int(tl.sort_axis) == int(jl.sort_axis)
     np.testing.assert_array_equal(tl.mask.numpy(), np.asarray(jl.mask))
@@ -147,11 +134,11 @@ def test_mapping_step_matches(mid_run):
         jstate, jout = JMap.mapping_step(st.map, odom_out.pose,
                                          odom_out.corner_last,
                                          odom_out.surf_last, None, cfg)
-    tstate = pipeline_state_from_numpy(tree_to_numpy(st))
+    tstate = pipeline_state_from_numpy(tree_to_numpy(st), device="cpu")
     tnew, tout = TMap.mapping_step(
         tstate.map, _t(odom_out.pose),
         cloud_to_torch(odom_out.corner_last, PointCloud),
-        cloud_to_torch(odom_out.surf_last, PointCloud), cfg)
+        cloud_to_torch(odom_out.surf_last, PointCloud), to_port_cfg(cfg))
     assert bool(tout.solved) and bool(jout.solved)
     rot, trans = pose_errors(tout.pose_aft.numpy(), jout.pose_aft)
     assert rot < 1e-6 and trans < 1e-5, (rot, trans)
@@ -165,16 +152,18 @@ def test_mapping_step_matches(mid_run):
 
 
 def test_surround_cloud_and_unported_modes(mid_run):
+    """The surround cloud keeps the JAX membership; a hybrid cache size
+    the kNN kernel is not built for raises, naming the supported ones."""
     import dataclasses
 
     cfg, st, _ = mid_run
-    tstate = pipeline_state_from_numpy(tree_to_numpy(st))
+    tstate = pipeline_state_from_numpy(tree_to_numpy(st), device="cpu")
     cloud = TMap.surround_cloud(tstate.map, cap=4096)
     jcloud = JMap.surround_cloud(st.map, cap=4096)
     np.testing.assert_array_equal(cloud.mask.numpy(), np.asarray(jcloud.mask))
-    for bad in (dict(map_exact_knn=False), dict(map_exact_regather_every=5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TMap.mapping_step(tstate.map, torch.zeros(6),
-                              PointCloud.zeros(cfg.max_less_sharp),
-                              PointCloud.zeros(cfg.max_less_flat),
-                              dataclasses.replace(cfg, **bad))
+    bad = dataclasses.replace(to_port_cfg(cfg), map_exact_regather_every=5,
+                              map_exact_cache_k=12)
+    with pytest.raises(ValueError, match=r"\(1, 5, 8\)"):
+        TMap.mapping_step(tstate.map, torch.zeros(6),
+                          PointCloud.zeros(cfg.max_less_sharp),
+                          PointCloud.zeros(cfg.max_less_flat), bad)

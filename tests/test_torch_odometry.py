@@ -21,7 +21,7 @@ from loam_tpu_torch import odometry as TO
 from loam_tpu_torch.state import pipeline_state_from_numpy
 
 from torch_parity import (feats_to_torch, make_sweeps, parity_cfg,
-                          pose_errors, tree_to_numpy)
+                          pose_errors, to_port_cfg, tree_to_numpy)
 
 torch.set_num_threads(1)
 
@@ -45,9 +45,10 @@ def test_correspondences_match_jnp_walks(mid_run):
     transform = np.array([0.002, -0.01, 0.001, 0.01, 0.0, 0.08], np.float32)
     j = JO._odom_associate(jnp.asarray(transform), feats, st.odom.corner_last,
                            st.odom.surf_last, cfg)
-    tstate = pipeline_state_from_numpy(tree_to_numpy(st))
+    tstate = pipeline_state_from_numpy(tree_to_numpy(st), device="cpu")
     t = TO._odom_associate(torch.tensor(transform), feats_to_torch(feats),
-                           tstate.odom.corner_last, tstate.odom.surf_last, cfg)
+                           tstate.odom.corner_last, tstate.odom.surf_last,
+                           to_port_cfg(cfg))
     for a, b in zip(j, t):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     assert (t[1].numpy() >= 0).sum() > 10 and (t[4].numpy() >= 0).sum() > 100
@@ -56,8 +57,9 @@ def test_correspondences_match_jnp_walks(mid_run):
 def test_odometry_step_matches(mid_run):
     cfg, st, feats = mid_run
     jstate, jout = JO.odometry_step(st.odom, feats, None, cfg)
-    tstate = pipeline_state_from_numpy(tree_to_numpy(st))
-    tnew, tout = TO.odometry_step(tstate.odom, feats_to_torch(feats), cfg)
+    tstate = pipeline_state_from_numpy(tree_to_numpy(st), device="cpu")
+    tnew, tout = TO.odometry_step(tstate.odom, feats_to_torch(feats),
+                                  to_port_cfg(cfg))
     rot, trans = pose_errors(tout.pose.numpy(), jout.pose)
     assert rot < 1e-6 and trans < 1e-5, (rot, trans)
     assert np.abs(np.asarray(jout.pose[3:])).max() > 0.05  # it moved
@@ -80,7 +82,8 @@ def test_init_frame_and_unsolvable_frame():
     feats = j_extract(JF.ingest_sweep(jnp.asarray(raw[0]),
                                       jnp.asarray(msk[0]), cfg), cfg)
     tf = feats_to_torch(feats)
-    s0 = TO.OdomState.create(cfg)
+    cfg = to_port_cfg(cfg)
+    s0 = TO.OdomState.create(cfg, device="cpu")
     s1, out = TO.odometry_step(s0, tf, cfg)
     assert bool(s1.initialized) and not bool(out.publish_to_mapping)
     assert torch.equal(out.pose, torch.zeros(6))

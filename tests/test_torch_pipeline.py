@@ -27,7 +27,7 @@ from loam_tpu_torch import metrics as TMet, pipeline as TP
 from loam_tpu_torch import frontend as TF
 from loam_tpu_torch.ops.features import extract_features
 
-from torch_parity import make_sweeps, parity_cfg, pose_errors
+from torch_parity import make_sweeps, parity_cfg, pose_errors, to_port_cfg
 
 torch.set_num_threads(1)
 
@@ -40,8 +40,9 @@ def replays():
     cfg = parity_cfg()
     raw, msk, poses = make_sweeps(FRAMES, seed=3)
     jouts = JP.replay_sweeps(jnp.asarray(raw), jnp.asarray(msk), cfg)
-    touts, tstate = TP.replay_sweeps(torch.tensor(raw), torch.tensor(msk),
-                                     cfg, return_state=True)
+    # NumPy in, as a user would hand them over; the CPU only on request
+    touts, tstate = TP.replay_sweeps(raw, msk, to_port_cfg(cfg),
+                                     return_state=True, device="cpu")
     return cfg, raw, msk, poses, jouts, touts, tstate
 
 
@@ -64,14 +65,16 @@ def test_replay_features_cadenced_matches_replay(replays):
     """The static-cadence replay of the same features reproduces the
     publish-flag replay exactly (same ops in the same order)."""
     cfg, raw, msk, _, _, touts, tstate = replays
+    cfg = to_port_cfg(cfg)
     feats = extract_features(TF.ingest_sweep(torch.tensor(raw),
                                              torch.tensor(msk), cfg), cfg)
-    couts, cstate = TP.replay_features_cadenced(feats, cfg)
+    couts, cstate = TP.replay_features_cadenced(feats, cfg, device="cpu")
     for name in ("pose_odom", "pose_aft", "pose_integrated", "mapped"):
         assert torch.equal(getattr(couts, name), getattr(touts, name)), name
     assert torch.equal(cstate.map.surf_map.key_hi, tstate.map.surf_map.key_hi)
     with pytest.raises(ValueError, match="static"):
-        TP.replay_features_cadenced(feats.map(lambda t: t[:4]), cfg)
+        TP.replay_features_cadenced(feats.map(lambda t: t[:4]), cfg,
+                                    device="cpu")
 
 
 def test_metrics_match():
@@ -88,25 +91,25 @@ def test_metrics_match():
 
 @pytest.mark.parametrize("bad", [
     dict(imu=True), dict(cfg=dict(emit_registered=True)),
-    dict(cfg=dict(map_exact_knn=False)),
-    dict(cfg=dict(map_exact_regather_every=5)),
     dict(cfg=dict(select_argmax=True)),
 ])
 def test_unported_paths_raise(bad):
     """Configurations outside the ported slice raise, naming their
     ROADMAP.md item, before any work is done."""
-    cfg = dataclasses.replace(parity_cfg(), **bad.get("cfg", {}))
+    cfg = to_port_cfg(dataclasses.replace(parity_cfg(),
+                                          **bad.get("cfg", {})))
     raw = torch.zeros(1, 64, 3)
     msk = torch.zeros(1, 64, dtype=torch.bool)
     kw = dict(imu_streams=object(), t_scans=torch.zeros(1)) \
         if bad.get("imu") else {}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.replay_sweeps(raw, msk, cfg, **kw)
+        TP.replay_sweeps(raw, msk, cfg, device="cpu", **kw)
 
 
 def test_port_runs_without_jax():
-    """Importing the port and replaying two frames leaves jax out of
-    sys.modules (the machine with the card has no JAX)."""
+    """Importing the port and replaying two frames leaves jax and
+    loam_tpu out of sys.modules: the port keeps its own config and
+    synthetic sweeps (the machine with the card has no JAX)."""
     fields = dataclasses.asdict(parity_cfg())
     script = textwrap.dedent(f"""
         import sys
@@ -114,17 +117,18 @@ def test_port_runs_without_jax():
         sys.path.insert(0, {os.path.join(ROOT, "tests")!r})
         import torch
         torch.set_num_threads(1)
-        from loam_tpu.config import LoamConfig
+        from loam_tpu_torch.config import LoamConfig
         from loam_tpu_torch import pipeline
         from torch_parity import make_sweeps
         raw, msk, _ = make_sweeps(2, n_azimuth=240)
-        outs = pipeline.replay_sweeps(torch.tensor(raw), torch.tensor(msk),
-                                      LoamConfig(**{fields!r}))
+        outs = pipeline.replay_sweeps(raw, msk, LoamConfig(**{fields!r}),
+                                      device="cpu")
         assert torch.isfinite(outs.pose_integrated).all()
-        bad = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
-        print("JAX_MODULES", bad)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "loam_tpu"))
+        print("FOREIGN_MODULES", bad)
     """)
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "JAX_MODULES []" in out.stdout, out.stdout
+    assert "FOREIGN_MODULES []" in out.stdout, out.stdout
