@@ -8,13 +8,18 @@ Phases, each of which raises (non-zero exit) on failure:
      all started together);
   3. hold each kernel against its plain PyTorch version at the replays'
      shapes on seeded inputs (indices, bit-fields and coordinates equal,
-     squared distances within 1e-6 relative); time both with CUDA events
-     (median of 20 runs), time the one PyTorch library expression that
-     computes the same function where there is one (cdist + topk for the
-     k-NN kernels, topk + gather for kselect), and compute each kernel's
-     bound: the larger of its bytes (each input read once, each output
-     written once) over 3.35 TB/s and its operations (counted for the
-     live inputs and tile windows of this run) over 67 TFLOP/s;
+     squared distances within 1e-6 relative; the odometry's 1-NN and
+     ring-walk kernels bit for bit, also on tie-heavy lattice clouds);
+     time both with CUDA events (median of 20 single calls, which for a
+     kernel of a few microseconds is the wrapper's host time; device_ms
+     is the time a call with the host out of the way, 50 calls queued
+     behind a long matrix product), time the one PyTorch library
+     expression that computes the same function where there is one
+     (cdist + topk for the k-NN kernels, topk + gather for kselect), and
+     compute each kernel's bound: the larger of its bytes (each input
+     read once, each output written once) over 3.35 TB/s and its
+     operations (counted for the live inputs and tile windows of this
+     run) over 67 TFLOP/s;
   4. replay 13 full-density synthetic VLP-16 sweeps through
      loam_tpu_torch.pipeline.replay_sweeps three times: LoamConfig()
      unchanged (strict exact k-NN), map_exact_regather_every=5 (the
@@ -50,6 +55,14 @@ ATE_GATE = 0.05    # metres, integrated trajectory vs the golden oracle
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # fp32 outside the tensor cores
 PAIR_OPS = 9       # 3 sub, 3 mul, 2 add, 1 compare per query/point pair
+# Call ms of the one-thread-a-query versions that the redesigned kernels
+# replaced, by kernel and shape (the bracketed times of PERF.md's kernel
+# table; NVIDIA H100 80GB HBM3, 700.00 W).  Printed beside the new times
+# on the text lines only: the kernels JSON holds what this run measured.
+SERIAL_MS = {
+    "knn_topk": {"Q=256,M=2048,": 0.0627, "Q=512,M=16384,": 0.2656},
+    "odom_corr": {"Q=256,M=2048,": 0.1353, "Q=512,M=16384,": 0.4219},
+}
 
 # name -> (config changes, wrappers that must launch, must not launch)
 REPLAYS = {
@@ -92,6 +105,36 @@ def time_ms(fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+_BALLAST = None    # the matrix device_ms keeps the card busy with
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """Milliseconds a call of fn() takes on the device when the host is
+    out of the way: reps calls are queued while the card is busy with a
+    long matrix product, so they run back to back."""
+    global _BALLAST
+    fn()
+    if _BALLAST is None:
+        _BALLAST = torch.empty((8192, 8192), device="cuda").fill_(1e-3)
+    ballast = _BALLAST
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.mm(ballast, ballast)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def lattice(rng, shape, half: int = 2):
+    """Coordinates on a 0.25 m lattice: many exactly equal distances."""
+    return (rng.integers(-half, half + 1, size=shape) * 0.25).astype(
+        np.float32)
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -178,27 +221,35 @@ def kernel_phase(dev, raw, msk, cfg):
         row["other_shapes"] = shapes[:-1]
         rows.append(row)
 
-    # ---- knn_topk k=1: the odometry 1-NN (corner, then surf shapes)
+    # ---- knn_topk k=1: the odometry 1-NN through its wrapper, as the
+    # odometry calls it (a lattice cloud full of exact ties, then the
+    # corner and surf shapes), every output compared exactly
     shapes = []
-    for Q, M in ((256, 2048), (512, 16384)):
+    for Q, M, ties in ((512, 4096, True), (256, 2048, False),
+                       (512, 16384, False)):
         live = M * 2 // 3
         n_ref = torch.tensor([live], **i32)
         n_q = torch.tensor([Q], **i32)
-        ref = cloud(M, live, 30.0)
-        q = (ref[:, rng.integers(0, live, Q)]
-             + torch.tensor(rng.normal(0, 0.2, (1, Q, 3)), device=dev)
-             ).float().contiguous()
+        if ties:
+            ref = torch.tensor(lattice(rng, (1, M, 3)), device=dev)
+            q = torch.tensor(lattice(rng, (1, Q, 3)), device=dev)
+        else:
+            ref = cloud(M, live, 30.0)
+            q = (ref[:, rng.integers(0, live, Q)]
+                 + torch.tensor(rng.normal(0, 0.2, (1, Q, 3)), device=dev)
+                 ).float().contiguous()
         t_lo, t_hi = KN.full_windows(1, Q, M, 256, 512, dev)
-        run_k = lambda: KN._launch(q, ref, n_q, n_ref, 1, t_lo, t_hi, 256, 512)
+        run_k = lambda: KN.knn_topk(q, ref, n_ref, 1, tq=256, tm=512)
         run_p = lambda: KN.knn_topk_plain(q, ref, n_q, n_ref, 1, t_lo, t_hi,
                                           tq=256, tm=512)
         shapes.append(dict(
-            shape=f"Q={Q},M={M},live={live},k=1",
-            max_abs_err=_compare("knn_topk", run_k(), run_p(), 1),
-            ms=time_ms(run_k), plain_ms=time_ms(run_p),
+            shape=f"Q={Q},M={M},live={live},k=1" + (",lattice" * ties),
+            max_abs_err=_compare("knn_topk", run_k(), run_p(), 2),
+            ms=time_ms(run_k), device_ms=device_ms(run_k),
+            plain_ms=time_ms(run_p),
             library_ms=time_ms(lambda: _library_knn(q[0], ref[0, :live], 1)),
             **bound(12 * (Q + live) + 8 * Q, PAIR_OPS * Q * live)))
-    add("knn_topk", "knn_topk", "loam_tpu_torch/csrc/knn_topk.cu",
+    add("knn_topk", "knn_topk", "loam_tpu_torch/csrc/knn_nearest.cu",
         "loam_tpu/ops/pallas/knn_topk.py:63", shapes)
 
     # ---- knn_topk_dyn with tile windows: the mapping 5-NN (margin 1 m)
@@ -240,7 +291,8 @@ def kernel_phase(dev, raw, msk, cfg):
                 shape=f"Q={Q},M={M},live={n_q}x{n_ref_i},k={k},"
                       f"pairs={pairs}",
                 max_abs_err=_compare(name, run_k(), run_p(), 1),
-                ms=time_ms(run_k), plain_ms=time_ms(run_p),
+                ms=time_ms(run_k), device_ms=device_ms(run_k),
+                plain_ms=time_ms(run_p),
                 # materialises the live (n_q, n_ref) matrix: 1.2 GB here
                 library_ms=time_ms(lambda: _library_knn(
                     q[0, :n_q], ref[0, :n_ref_i], k), reps=5),
@@ -249,17 +301,27 @@ def kernel_phase(dev, raw, msk, cfg):
         add(name, "knn_topk_dyn", "loam_tpu_torch/csrc/knn_topk.cu",
             "loam_tpu/ops/pallas/knn_topk.py:133", shapes)
 
-    # ---- odom_corr: corner then surf walks on a ring-sorted cloud
+    # ---- odom_corr: surf walks on a lattice cloud with locally unsorted
+    # rings (exact ties within and across the two sides), then corner and
+    # surf walks on a ring-sorted cloud; every output compared exactly
     shapes = []
-    for Q, M, surf in ((256, 2048, False), (512, 16384, True)):
+    for Q, M, surf, ties in ((512, 4096, True, True),
+                             (256, 2048, False, False),
+                             (512, 16384, True, False)):
         live = M * 2 // 3
         rings = np.zeros((1, M), np.int32)
         rings[0, :live] = np.sort(rng.integers(0, 16, live))
-        ref = cloud(M, live, 30.0)
         j1 = torch.tensor(rng.integers(-1, live, (1, Q)), **i32)
-        q = (ref[:, j1[0].clamp(min=0).long()]
-             + torch.tensor(rng.normal(0, 0.3, (1, Q, 3)), device=dev)
-             ).float().contiguous()
+        if ties:
+            rings[0, :live] = np.clip(
+                rings[0, :live] + rng.integers(-2, 3, live), 0, 15)
+            ref = torch.tensor(lattice(rng, (1, M, 3)), device=dev)
+            q = torch.tensor(lattice(rng, (1, Q, 3)), device=dev)
+        else:
+            ref = cloud(M, live, 30.0)
+            q = (ref[:, j1[0].clamp(min=0).long()]
+                 + torch.tensor(rng.normal(0, 0.3, (1, Q, 3)), device=dev)
+                 ).float().contiguous()
         ring_t = torch.tensor(rings, device=dev)
         n_q, n_ref = torch.tensor([Q * 3 // 4], **i32), \
             torch.tensor([live], **i32)
@@ -272,9 +334,10 @@ def kernel_phase(dev, raw, msk, cfg):
         visited = int(up.sum()) + int(dn.sum())
         shapes.append(dict(
             shape=f"Q={Q},M={M},live={live},{'surf' if surf else 'corner'},"
-                  f"visited={visited}",
-            max_abs_err=_compare("odom_corr", run_k(), run_p(), 2),
-            ms=time_ms(run_k), plain_ms=time_ms(run_p), library_ms=None,
+                  f"visited={visited}" + (",lattice" * ties),
+            max_abs_err=_compare("odom_corr", run_k(), run_p(), 4),
+            ms=time_ms(run_k), device_ms=device_ms(run_k),
+            plain_ms=time_ms(run_p), library_ms=None,
             # + a ring compare per visited point
             **bound(12 * Q + 16 * live + 4 * Q + 16 * Q,
                     (PAIR_OPS + 1) * visited)))
@@ -304,8 +367,8 @@ def kernel_phase(dev, raw, msk, cfg):
         "loam_tpu/ops/pallas/select_walk.py:81", [dict(
             shape=f"R={R},W={W},steps={steps}",
             max_abs_err=_compare("select_walk", run_k(), run_p(), 4),
-            ms=time_ms(run_k), plain_ms=time_ms(run_p, reps=5),
-            library_ms=None,
+            ms=time_ms(run_k), device_ms=device_ms(run_k),
+            plain_ms=time_ms(run_p, reps=5), library_ms=None,
             **bound(4 * steps + 5 * 4 * R * (W // 32), 20 * steps))])
 
     # ---- kselect: the hybrid re-rank (C=8), the cell re-rank (C=24) and
@@ -336,8 +399,8 @@ def kernel_phase(dev, raw, msk, cfg):
         shapes.append(dict(
             shape=f"Q={Q},C={C},k={k},valid={n_valid}",
             max_abs_err=_compare("kselect", run_k(), run_p(), 1),
-            ms=time_ms(run_k), plain_ms=time_ms(run_p),
-            library_ms=time_ms(run_lib),
+            ms=time_ms(run_k), device_ms=device_ms(run_k),
+            plain_ms=time_ms(run_p), library_ms=time_ms(run_lib),
             # 8 flops a valid candidate, then k scans of C compares
             **bound(Q * C * 13 + Q * 12 + Q * k * 16,
                     8 * n_valid + Q * C * k)))
@@ -405,8 +468,13 @@ def main() -> int:
         for s in r["other_shapes"] + [r]:
             lib = "none" if s["library_ms"] is None \
                 else f"{s['library_ms']:.4f} ms"
+            was = "".join(
+                f", the one-thread-a-query kernel took {ms:.4f} ms a call"
+                for prefix, ms in SERIAL_MS.get(r["name"], {}).items()
+                if s["shape"].startswith(prefix))
             print(f"kernel {r['name']}: max_abs_err {s['max_abs_err']:.3g}, "
-                  f"{s['ms']:.4f} ms vs plain {s['plain_ms']:.4f} ms, "
+                  f"{s['ms']:.4f} ms a call ({s['device_ms']:.4f} ms on the "
+                  f"device){was}, plain {s['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {s['bound_ms']:.6f} ms by "
                   f"{s['bound_by']} ({s['shape']}) [{card}]", flush=True)
 
@@ -449,8 +517,8 @@ def main() -> int:
             raise AssertionError(f"no replay launched {r['name']}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "other_shapes")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "shape", "other_shapes")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 // Exact brute-force k nearest neighbours, one thread per query.
 //
-// Replaces: loam_tpu/ops/pallas/knn_topk.py:_knn_kernel (k=1, the
-// odometry 1-NN) and :_knn_kernel_dyn (k=5, the pruned mapping 5-NN
-// with live query blocks and per-block reference-tile windows; k=8,
-// the hybrid cadence's candidate gather).
+// Replaces: loam_tpu/ops/pallas/knn_topk.py:_knn_kernel_dyn (k=5, the
+// pruned mapping 5-NN with live query blocks and per-block
+// reference-tile windows; k=8, the hybrid cadence's candidate gather;
+// k=1 through knn_topk_dyn).  The odometry 1-NN over a whole live
+// reference (:_knn_kernel) has a kernel of its own, knn_nearest.cu.
 //
 // What bounds it on the H100: fp32 CUDA-core arithmetic and issue
 // slots, not bytes.  Each query/reference pair costs 3 subtractions,
@@ -30,18 +31,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "exact_dist.cuh"
+
 namespace {
-
-constexpr float kBig = 1e30f;
-
-__device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
-                                         float rx, float ry, float rz) {
-  const float dx = __fsub_rn(qx, rx);
-  const float dy = __fsub_rn(qy, ry);
-  const float dz = __fsub_rn(qz, rz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
 
 template <int K>
 __global__ void knn_kernel(const float* __restrict__ q,

@@ -1,25 +1,39 @@
 // Odometry 2nd/3rd correspondence points: the reference's break-bounded
-// ring walks outward from the 1-NN, one thread per query.
+// ring walks outward from the 1-NN, one warp per query.
 //
 // Replaces: loam_tpu/ops/pallas/odom_corr.py:_corr_kernel (wrapper
 // _corr_pallas), which re-expresses the walks as a streaming reduction
-// over reference tiles; this kernel runs the reference's own loops
+// over reference tiles; this kernel runs the reference's own walks
 // instead (src/laserOdometry.cpp:486-524 corners, :598-645 surfaces),
 // which need no streaming state.
 //
-// What bounds it on the H100: dependent loads.  Each thread walks the
-// ring-sorted previous cloud from its 1-NN j1 until the ring id leaves
-// cr +- ring_window, which spans up to ~5 of 16 rings (a few thousand
-// points of a 16k-point surface cloud); every step reads 16 bytes
-// (xyz + ring) that the block's neighbouring queries often share via
-// L1/L2.  There are only 256-512 queries per call, so the card is
-// mostly idle; the walk is short compared to the launch either way.
+// What bounds it on the H100: launch latency and the longest walk of the
+// call, not bytes or arithmetic.  A walk covers the points whose ring id
+// stays within cr +- ring_window of the 1-NN's ring cr: up to ~5 of 16
+// rings, a few thousand points of a 16k-point surface cloud, 16 bytes
+// and ~10 operations each; there are only 256-512 queries a call.  Walked
+// by one thread a query, every step is a dependent load and a warp waits
+// for its longest walk.
+//
+// Design: a warp owns a query and its 32 lanes take 32 consecutive points
+// of the walk, so the loads of `ring` and `ref` are coalesced; a block is
+// 4 warps, so 512 queries are 128 blocks and 256 are 64.  A side of the
+// walk advances kUnroll warp steps (128 points) an iteration, and the
+// next iteration's points are loaded before this one's are judged, so no
+// load waits for a break decision.  The break is found, not assumed: each
+// lane tests its own point (ring > cr + window upward, ring < cr - window
+// downward), __ballot_sync names the first breaking lane, lanes at or
+// past it drop out and the side ends after that step.  Nothing requires
+// the ring ids to be sorted.  Every lane keeps its own best (d, index)
+// for the 2nd and, for surfaces, the 3rd point under one rule, the
+// lexicographic minimum of (distance, index), and a shuffle reduction
+// under the same rule ends the walk.
 //
 // Semantics (identical to the jnp walks loam_tpu/odometry.py:94-146):
-// for a query with j1 >= 0 and cr = ring[j1],
+// for a query with 0 <= j1 < n_ref and cr = ring[j1],
 //   upward   j = j1+1, ...  stops at the first ring > cr + window, at the
 //            live count n_ref, and (truncate) at the current feature
-//            count n_q — the reference's loop-bound quirk (:486, :598);
+//            count n_q, the reference's loop-bound quirk (:486, :598);
 //   downward j = j1-1, ...  stops at the first ring < cr - window.
 // Eligible 2nd points: corner, ring > cr upward / ring < cr downward;
 // surface, ring <= cr upward / ring >= cr downward.  Eligible 3rd points
@@ -27,38 +41,108 @@
 // Tie rule: among equal exact distances the smaller index wins (the
 // first-occurrence argmin of the jnp walks; the Pallas kernel instead
 // prefers the upward side, PARITY.md "Documented TPU-only divergences").
-// The upward walk keeps the first best (strict <), the downward walk the
-// last best (<=), and the two sides merge with the downward side winning
-// ties.  Distances are exact fp32 (q - r)^2 in the order
-// round(round(dx^2 + dy^2) + dz^2), like the plain torch version; the
-// caller applies the 25 m^2 gates on recomputed distances.
+// A serial walk gets there by keeping the first best upward, the last
+// best downward and letting the downward side win the merge; all three
+// say (distance, index) lexicographic, which needs no walk order.
+// Distances are exact fp32 (exact_dist.cuh), like the plain torch
+// version; the caller applies the 25 m^2 gates on recomputed distances.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "exact_dist.cuh"
 
 namespace {
 
-constexpr float kBig = 1e30f;
+constexpr int kWarps = 4;    // queries a block
+constexpr int kUnroll = 4;   // warp steps an iteration: 128 points
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
-                                         const float* r) {
-  const float dx = __fsub_rn(qx, r[0]);
-  const float dy = __fsub_rn(qy, r[1]);
-  const float dz = __fsub_rn(qz, r[2]);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
+// The smallest (distance, index) seen.  Empty is (+inf, -1): no real
+// candidate has an index below -1, so an infinite distance never enters.
 struct Best {
-  float d = kBig;
-  int32_t i = -1;
+  float d;
+  int32_t i;
+  __device__ __forceinline__ Best() : d(INFINITY), i(-1) {}
+  __device__ __forceinline__ void take(float nd, int32_t ni) {
+    if (nd < d || (nd == d && ni < i)) {
+      d = nd;
+      i = ni;
+    }
+  }
 };
 
-// downward candidates sit below upward ones, so on a tie they win
-__device__ __forceinline__ Best merge(Best up, Best dn) {
-  return (dn.i >= 0 && (up.i < 0 || dn.d <= up.d)) ? dn : up;
+__device__ __forceinline__ Best warp_min(Best b) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    b.take(__shfl_xor_sync(kFull, b.d, off), __shfl_xor_sync(kFull, b.i, off));
+  return b;
 }
 
+// kUnroll warp steps of one side, as loaded: ring id and coordinates of
+// this lane's point of each step (untouched where the walk has ended).
+struct Chunk {
+  float r[kUnroll], x[kUnroll], y[kUnroll], z[kUnroll];
+};
+
+// One side of the walk: `len` points starting beside j1, in walk order
+// p = 0, 1, ...; point p is column j1 + 1 + p upward, j1 - 1 - p downward.
+template <bool kSurf, bool kUp>
+__device__ __forceinline__ void walk_side(const float* __restrict__ R,
+                                          const int32_t* __restrict__ rg,
+                                          int j1, int len, float cr,
+                                          float window, float qx, float qy,
+                                          float qz, int lane, Best& b2,
+                                          Best& b3) {
+  const float edge = kUp ? __fadd_rn(cr, window) : __fsub_rn(cr, window);
+  auto column = [&](int p) { return kUp ? j1 + 1 + p : j1 - 1 - p; };
+  auto load = [&](int p0) {
+    Chunk c;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = p0 + 32 * u + lane;
+      c.r[u] = c.x[u] = c.y[u] = c.z[u] = 0.0f;
+      if (p < len) {
+        const long col = column(p);
+        c.r[u] = static_cast<float>(rg[col]);
+        c.x[u] = R[3 * col];
+        c.y[u] = R[3 * col + 1];
+        c.z[u] = R[3 * col + 2];
+      }
+    }
+    return c;
+  };
+
+  Chunk cur = load(0);
+  for (int p0 = 0; p0 < len; p0 += 32 * kUnroll) {
+    const Chunk nxt = load(p0 + 32 * kUnroll);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = p0 + 32 * u + lane;
+      const float r = cur.r[u];
+      const bool in = p < len;
+      const bool brk = in && (kUp ? r > edge : r < edge);
+      const unsigned broke = __ballot_sync(kFull, brk);
+      // visited: in range and before the first breaking lane of the step
+      if (in && (broke & ((2u << lane) - 1u)) == 0u) {
+        const bool beyond = kUp ? r > cr : r < cr;  // strictly past cr
+        const bool el2 = kSurf ? !beyond : beyond;
+        const bool el3 = kSurf && beyond;
+        if (el2 || el3) {
+          const float d = sq_dist(qx, qy, qz, cur.x[u], cur.y[u], cur.z[u]);
+          const int32_t col = column(p);
+          if (el2) b2.take(d, col);
+          if (el3) b3.take(d, col);
+        }
+      }
+      if (broke) return;  // uniform across the warp
+    }
+    cur = nxt;
+  }
+}
+
+template <bool kSurf>
 __global__ void odom_corr_kernel(const float* __restrict__ q,
                                  const float* __restrict__ ref,
                                  const int32_t* __restrict__ ring,
@@ -69,57 +153,45 @@ __global__ void odom_corr_kernel(const float* __restrict__ q,
                                  int32_t* __restrict__ j3,
                                  float* __restrict__ d2,
                                  float* __restrict__ d3, int Q, int M,
-                                 float window, int surf, int truncate) {
+                                 float window, int truncate) {
   const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (i >= Q) return;  // a whole warp leaves; there is no block barrier
   const long qo = static_cast<long>(b) * Q + i;
   const float* R = ref + static_cast<long>(b) * M * 3;
   const int32_t* rg = ring + static_cast<long>(b) * M;
   const int nr = n_ref[b] < M ? n_ref[b] : M;
   const int j = j1[qo];
 
-  Best up2, up3, dn2, dn3;
+  Best b2, b3;
   if (j >= 0 && j < nr) {
     const float qx = q[qo * 3], qy = q[qo * 3 + 1], qz = q[qo * 3 + 2];
     const float cr = static_cast<float>(rg[j]);
     int up_end = nr;
     if (truncate && n_q[b] < up_end) up_end = n_q[b];
-    for (int c = j + 1; c < up_end; ++c) {
-      const float r = static_cast<float>(rg[c]);
-      if (r > cr + window) break;
-      const bool el2 = surf ? (r <= cr) : (r > cr);
-      const bool el3 = surf && (r > cr);
-      if (!el2 && !el3) continue;
-      const float d = sq_dist(qx, qy, qz, R + 3L * c);
-      if (el2 && d < up2.d) up2 = {d, c};
-      if (el3 && d < up3.d) up3 = {d, c};
-    }
-    for (int c = j - 1; c >= 0; --c) {
-      const float r = static_cast<float>(rg[c]);
-      if (r < cr - window) break;
-      const bool el2 = surf ? (r >= cr) : (r < cr);
-      const bool el3 = surf && (r < cr);
-      if (!el2 && !el3) continue;
-      const float d = sq_dist(qx, qy, qz, R + 3L * c);
-      if (el2 && d <= dn2.d) dn2 = {d, c};
-      if (el3 && d <= dn3.d) dn3 = {d, c};
-    }
+    walk_side<kSurf, true>(R, rg, j, up_end - (j + 1), cr, window, qx, qy, qz,
+                           lane, b2, b3);
+    walk_side<kSurf, false>(R, rg, j, j, cr, window, qx, qy, qz, lane, b2,
+                            b3);
+    b2 = warp_min(b2);
+    if (kSurf) b3 = warp_min(b3);
   }
-  const Best b2 = merge(up2, dn2);
-  const Best b3 = merge(up3, dn3);
-  j2[qo] = b2.i;
-  d2[qo] = b2.d;
-  j3[qo] = b3.i;
-  d3[qo] = b3.d;
+  if (lane == 0) {
+    j2[qo] = b2.i;
+    d2[qo] = b2.i >= 0 ? b2.d : kBig;
+    j3[qo] = b3.i;
+    d3[qo] = b3.i >= 0 ? b3.d : kBig;
+  }
 }
 
 }  // namespace
 
 // q (B, Q, 3), ref (B, M, 3) float32 (recentred); ring (B, M) int32 ring
-// ids; j1 (B, Q) int32 gated 1-NN (-1 none); n_q, n_ref (B,) int32.
-// Outputs j2, j3 (B, Q) int32 (-1 none) and their exact squared
-// distances d2, d3 (B, Q) float32 (1e30 none).  Returns cudaGetLastError().
+// ids, in any order; j1 (B, Q) int32 gated 1-NN (-1 none); n_q, n_ref
+// (B,) int32.  Outputs j2, j3 (B, Q) int32 (-1 none) and their exact
+// squared distances d2, d3 (B, Q) float32 (1e30 none).  Returns
+// cudaGetLastError().
 extern "C" int odom_corr_launch(const void* q, const void* ref,
                                 const void* ring, const void* j1,
                                 const void* n_q, const void* n_ref, void* j2,
@@ -127,14 +199,14 @@ extern "C" int odom_corr_launch(const void* q, const void* ref,
                                 int M, float window, int surf, int truncate,
                                 void* stream) {
   if (B <= 0 || Q <= 0) return 0;
-  constexpr int kThreads = 128;
-  dim3 grid((Q + kThreads - 1) / kThreads, B);
-  odom_corr_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((Q + kWarps - 1) / kWarps, B);
+  auto* kernel = surf ? odom_corr_kernel<true> : odom_corr_kernel<false>;
+  kernel<<<grid, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(ref),
       static_cast<const int32_t*>(ring), static_cast<const int32_t*>(j1),
       static_cast<const int32_t*>(n_q), static_cast<const int32_t*>(n_ref),
       static_cast<int32_t*>(j2), static_cast<int32_t*>(j3),
-      static_cast<float*>(d2), static_cast<float*>(d3), Q, M, window, surf,
+      static_cast<float*>(d2), static_cast<float*>(d3), Q, M, window,
       truncate);
   return cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled
 by ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-ctypes.  Libraries are keyed by a hash of their source, so an edited
-kernel rebuilds and an unchanged one loads from ``_build/``.  Nothing
+ctypes.  Libraries are keyed by a hash of their source and of every
+shared header (``csrc/*.cuh``), so an edited kernel or header rebuilds
+and an unchanged one loads from ``_build/``.  Nothing
 is built at import: the first launch builds (or ``build_all`` builds
 every kernel in parallel, one nvcc per source).
 """
@@ -24,7 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("knn_topk", "odom_corr", "select_walk", "kselect")
+KERNEL_SOURCES = ("knn_topk", "knn_nearest", "odom_corr", "select_walk",
+                  "kselect")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -43,7 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    sha = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    digest = sha.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 

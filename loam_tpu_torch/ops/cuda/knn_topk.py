@@ -11,6 +11,14 @@ t_lo[b] <= j // tm < t_hi[b].  Returns idx (B, Q, k) int32 and
 d2 (B, Q, k) float32, nearest first, ties to the smaller index, exact
 fp32 distances; missing neighbours and dead blocks read (index 0,
 d2 = 1e30).  Each wrapper counts its kernel launches in ``.launches``.
+
+``knn_topk`` is the special case of every query against the whole live
+reference.  At k = 1 on the card it runs a kernel of its own
+(csrc/knn_nearest.cu), which splits the reference range across blocks,
+takes n_ref only and returns idx and d2 as strided views of one packed
+(B, Q) int64 key tensor.  Squared distances at or above 1e30 are outside
+the contract (the clouds are metres around their mean): that kernel
+reads such a reference as a missing neighbour.
 """
 
 from __future__ import annotations
@@ -24,6 +32,10 @@ from . import _build
 
 KERNEL_K = (1, 5, 8)   # the kernel's template instantiations
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_NEAREST_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
+                     + (ctypes.c_void_p,))
+# knn_nearest's key for "no reference": float32 1e30's bits above index 0
+EMPTY_KEY = 0x7149F2CA << 32
 
 
 def full_windows(B, Q, M, tq, tm, device):
@@ -87,9 +99,30 @@ def _launch(q, ref, n_q, n_ref, k, t_lo, t_hi, tq, tm):
     return idx, d2
 
 
+def _launch_nearest(q, ref, n_ref):
+    B, Q, _ = q.shape
+    M = ref.shape[1]
+    _build.require(q, torch.float32, (B, Q, 3), "q")
+    _build.require(ref, torch.float32, (B, M, 3), "ref")
+    _build.require(n_ref, torch.int32, (B,), "n_ref")
+    keys = torch.full((B, Q), EMPTY_KEY, dtype=torch.int64, device=q.device)
+    launch = _build.entry("knn_nearest", _NEAREST_ARGTYPES)
+    err = launch(*(_build.ptr(t) for t in (q, ref, n_ref, keys)),
+                 B, Q, M, _build.stream_of(q))
+    _build.check(err, "knn_nearest")
+    # little-endian words of a key: index below, distance bits above
+    words = keys.view(torch.int32).view(B, Q, 2)
+    return words[..., :1], words.view(torch.float32)[..., 1:]
+
+
 def knn_topk(q, ref, n_ref, k: int, *, tq: int, tm: int):
     """All query blocks against the whole live reference set (the
-    odometry 1-NN; Pallas _knn_kernel)."""
+    odometry 1-NN; Pallas _knn_kernel).  tq and tm tile the plain
+    version and the k > 1 kernel; the k=1 kernel picks its own blocks."""
+    if q.device.type != "cpu" and k == 1:
+        out = _launch_nearest(q, ref, n_ref)
+        knn_topk.launches += 1
+        return out
     B, Q, _ = q.shape
     n_q = torch.full((B,), Q, dtype=torch.int32, device=q.device)
     t_lo, t_hi = full_windows(B, Q, ref.shape[1], tq, tm, q.device)

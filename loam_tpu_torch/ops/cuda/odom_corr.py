@@ -3,12 +3,19 @@ plain version, and odom_correspondences (counterpart of
 loam_tpu/ops/pallas/odom_corr.py).
 
 Contract of ``odom_corr`` (kernel and plain version): q (B, Q, 3),
-ref (B, M, 3) float32; ring (B, M) int32; j1 (B, Q) int32 gated 1-NN
-(-1 none); n_q, n_ref (B,) int32.  Returns (j2, j3, d2, d3): the best
-2nd / 3rd point per query (int32, -1 none) and their exact squared
-distances (1e30 none), under the walk rules documented in
-csrc/odom_corr.cu; ties go to the smaller index.  The wrapper counts
-its kernel launches in ``odom_corr.launches``.
+ref (B, M, 3) float32; ring (B, M) int32, in any order; j1 (B, Q)
+int32 gated 1-NN, -1 (none) or a live index below n_ref; n_q, n_ref
+(B,) int32.
+Returns (j2, j3, d2, d3): the best 2nd / 3rd point per query (int32,
+-1 none) and their exact squared distances (1e30 none), under the walk
+rules documented in csrc/odom_corr.cu.  Among the points a query's two
+walks visit, the winner is the minimum of (distance, index) in
+lexicographic order: ties go to the smaller index.  A j1 at or above a
+non-zero n_ref is outside the contract (no caller passes one): the
+kernel reads it as none, the plain version walks down from it.  A
+finite squared distance at or above 1e30 is a candidate like any other,
+in both.  The wrapper counts its kernel launches in
+``odom_corr.launches``.
 """
 
 from __future__ import annotations
@@ -17,12 +24,12 @@ import ctypes
 
 import torch
 
-from ..nn import BIG, masked_argmin, pairwise_sq_dists
+from ..nn import masked_argmin, pairwise_sq_dists
 from . import _build
+from .knn_topk import knn_topk, recenter, tile
 
 _ARGTYPES = (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 3 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-from .knn_topk import knn_topk, recenter, tile
 
 
 def walk_masks(ring, j1, n_q, n_ref, *, window: float, truncate: bool):

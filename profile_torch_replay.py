@@ -10,9 +10,10 @@ three when none is named) and prints, after a warm-up replay:
   * host reads a mapping frame: scalar reads (bool()/int() of a device
     tensor) and stream or device synchronisations the profiler saw
     inside mapping_step, over the mapping frames that solved;
-  * a torch.profiler pass: device time by kernel, the device events
-    counted, the hand-written kernels' share, and the device busy share
-    against an unprofiled replay's wall time;
+  * a torch.profiler pass: device time by kernel (the twelve largest
+    entries and every hand-written kernel, each with its rank), the
+    device events counted, the hand-written kernels' share, and the
+    device busy share against an unprofiled replay's wall time;
   * peak device memory.
 Every line that carries a time names the card and its power limit.
 """
@@ -27,8 +28,8 @@ import torch
 
 import chip_smoke as CS
 
-HAND_WRITTEN = ("knn_kernel", "odom_corr_kernel", "select_walk_kernel",
-                "kselect_kernel")
+HAND_WRITTEN = ("knn_kernel", "knn_nearest_kernel", "odom_corr_kernel",
+                "select_walk_kernel", "kselect_kernel")
 SCALAR_READ = "aten::_local_scalar_dense"
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 
@@ -121,8 +122,10 @@ def profile_mode(name, raw_t, msk_t, dev, card) -> None:
           f"kernels {sum(r[0] for r in mine) / 1e3:.3f} ms in "
           f"{sum(r[1] for r in mine)} launches; peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
-    for us, count, key in rows[:12]:
-        print(f"  {us / 1e3:10.3f} ms {count:7d}  {key[:100]}")
+    for rank, (us, count, key) in enumerate(rows):
+        if rank < 12 or (us, count, key) in mine:
+            print(f"  #{rank + 1:<4d} {us / 1e3:10.3f} ms {count:7d}  "
+                  f"{key[:100]}")
 
 
 def main() -> int:

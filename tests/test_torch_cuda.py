@@ -92,6 +92,113 @@ def test_odom_corr_kernel_matches_plain(cuda, surf, truncate):
     assert (out[0] >= 0).sum() > Q
 
 
+def _lattice(rng, shape, half=2):
+    """Coordinates on a 0.25 m lattice: many exactly equal distances."""
+    return (rng.integers(-half, half + 1, size=shape) * 0.25).astype(
+        np.float32)
+
+
+# name -> (Q, M, live sizes of the two problems, lattice coordinates)
+NEAREST_CASES = {
+    "ties_ragged": (300, 640, (500, 333), True),
+    "empty_and_tiny": (70, 256, (0, 3), True),
+    "one_slice_ragged": (33, 100, (100, 1), False),
+    "corner": (256, 2048, (1365, 2048), False),
+    "surf": (512, 16384, (10922, 16384), False),
+    "surf_ties": (512, 16384, (10922, 129), True),
+}
+
+
+@pytest.mark.parametrize("case", list(NEAREST_CASES))
+def test_knn_nearest_kernel_matches_plain(cuda, case):
+    """The k=1 kernel (reference slices merged by an atomic minimum on a
+    (distance, index) key) equals the plain version bit for bit: exact
+    ties, empty and one-point references, query counts that leave the
+    last block ragged, and the replay's corner and surf shapes."""
+    Q, M, live, lattice = NEAREST_CASES[case]
+    rng = np.random.default_rng(Q + M)
+    if lattice:
+        ref_np, q_np = _lattice(rng, (2, M, 3)), _lattice(rng, (2, Q, 3))
+    else:
+        ref_np = rng.uniform(-30, 30, (2, M, 3)).astype(np.float32)
+        q_np = (ref_np[:, rng.integers(0, min(live) or 1, Q)]
+                + rng.normal(0, 0.2, (2, Q, 3))).astype(np.float32)
+    q, ref = torch.tensor(q_np, device=cuda), torch.tensor(ref_np, device=cuda)
+    n_ref = _i32(live, cuda)
+    before = KN.knn_topk.launches
+    idx, d2 = KN.knn_topk(q, ref, n_ref, 1, tq=Q, tm=M)
+    assert KN.knn_topk.launches == before + 1
+    assert idx.shape == d2.shape == (2, Q, 1)
+    assert idx.dtype == torch.int32 and d2.dtype == torch.float32
+    lo, hi = KN.full_windows(2, Q, M, Q, M, cuda)
+    idx_p, d2_p = KN.knn_topk_plain(q, ref, _i32([Q, Q], cuda), n_ref, 1,
+                                    lo, hi, tq=Q, tm=M)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
+    for b, n in enumerate(live):
+        if n == 0:
+            assert (idx[b] == 0).all() and (d2[b] == 1e30).all()
+        else:
+            assert (d2[b] < 1e29).all() and int(idx[b].max()) < n
+
+
+# name -> (Q, M, live sizes, feature counts, ring order, lattice)
+CORR_CASES = {
+    "ties_sorted": (70, 640, (500, 333), (40, 70), "sorted", True),
+    "ties_jittered": (70, 640, (500, 333), (40, 70), "jittered", True),
+    "ties_shuffled": (131, 640, (640, 200), (131, 5), "shuffled", True),
+    "empty_reference": (64, 256, (0, 0), (64, 64), "sorted", True),
+    "corner": (256, 2048, (1365, 2048), (200, 256), "sorted", False),
+    "surf": (512, 16384, (10922, 16384), (384, 512), "sorted", False),
+    "surf_ties": (512, 16384, (10922, 7000), (384, 512), "jittered", True),
+}
+
+
+@pytest.mark.parametrize("surf,truncate", [(False, True), (True, True),
+                                           (True, False)])
+@pytest.mark.parametrize("case", list(CORR_CASES))
+def test_odom_corr_kernel_ties_and_ring_orders(cuda, case, surf, truncate):
+    """The warp-a-query walk equals the plain version bit for bit on
+    exact ties within and across the two sides, on ring ids that are
+    sorted, locally out of order and fully shuffled, on rows without a
+    1-NN (and one problem with none at all), on empty references, with a
+    ragged last block, and at the replay's shapes."""
+    Q, M, live, n_q, order, lattice = CORR_CASES[case]
+    rng = np.random.default_rng(Q + M + len(case))
+    rings = np.sort(rng.integers(0, 16, (2, M)), axis=1)
+    if order == "jittered":
+        rings = np.clip(rings + rng.integers(-2, 3, (2, M)), 0, 15)
+    elif order == "shuffled":
+        rings = rng.permuted(rings, axis=1)
+    # -1 or a live index: all -1 where the reference is empty
+    j1_np = np.stack([rng.integers(0, max(n, 1), Q) for n in live])
+    j1_np = np.minimum(j1_np, np.array(live)[:, None] - 1)
+    j1_np[:, ::5] = -1
+    j1_np[1, :] = -1 if case == "ties_sorted" else j1_np[1]
+    if lattice:
+        ref_np, q_np = _lattice(rng, (2, M, 3)), _lattice(rng, (2, Q, 3))
+    else:
+        ref_np = rng.uniform(-30, 30, (2, M, 3)).astype(np.float32)
+        q_np = (np.take_along_axis(ref_np, np.maximum(j1_np, 0)[..., None], 1)
+                + rng.normal(0, 0.3, (2, Q, 3))).astype(np.float32)
+    args = (torch.tensor(q_np, device=cuda), torch.tensor(ref_np, device=cuda),
+            _i32(rings, cuda), _i32(j1_np, cuda), _i32(n_q, cuda),
+            _i32(live, cuda))
+    kw = dict(surf=surf, window=LoamConfig().ring_window, truncate=truncate)
+    before = OC.odom_corr.launches
+    out = OC.odom_corr(*args, **kw)
+    assert OC.odom_corr.launches == before + 1
+    plain = OC.odom_corr_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert (out[0][:, ::5] == -1).all() and (out[2][:, ::5] == 1e30).all()
+    if case == "empty_reference":
+        assert (out[0] == -1).all() and (out[1] == -1).all()
+    elif order != "shuffled":     # a shuffled walk breaks after a step or two
+        assert (out[0][0] >= 0).sum() > Q // 4
+
+
 def test_select_walk_kernel_matches_plain(cuda):
     rng = np.random.default_rng(3)
     cfg = dataclasses.replace(LoamConfig(), ring_width=512)

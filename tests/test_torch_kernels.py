@@ -241,3 +241,165 @@ def test_walk_bits_roundtrip():
     words = TSW.pack_bits(m)
     assert int(words.max()) < 2 ** 32
     assert torch.equal(TSW.unpack_bits(words, 128), m)
+
+
+# ---- exact ties: the (distance, index) rule of odom_corr and knn_topk
+
+def _lattice(rng, shape, half=2):
+    """Coordinates on a 0.25 m lattice: many exactly equal distances."""
+    return (rng.integers(-half, half + 1, size=shape) * 0.25).astype(
+        np.float32)
+
+
+def _sq_np(q, r):
+    """round(round(dx^2 + dy^2) + dz^2) in float32, like the kernels."""
+    d = (q - r).astype(np.float32)
+    return np.float32(np.float32(d[0] * d[0] + d[1] * d[1]) + d[2] * d[2])
+
+
+def _serial_walks(q, ref, ring, j1, n_q, n_ref, surf, window, truncate):
+    """The reference's two loops a query, one point at a time: upward
+    keeps the first best (<), downward the last best (<=), and the
+    downward side wins a tie at the merge.  Returns (j2, j3, d2, d3) and
+    the number of queries whose two sides tied exactly."""
+    Q, M = q.shape[0], ref.shape[0]
+    big = np.float32(1e30)
+    out_j = np.full((2, Q), -1, np.int32)
+    out_d = np.full((2, Q), big, np.float32)
+    cross_ties = 0
+    nr = min(int(n_ref), M)
+    for i in range(Q):
+        j = int(j1[i])
+        up = [[big, -1], [big, -1]]
+        dn = [[big, -1], [big, -1]]
+        if 0 <= j < nr:
+            cr = np.float32(ring[j])
+            up_end = min(nr, int(n_q)) if truncate else nr
+            for c in range(j + 1, up_end):
+                r = np.float32(ring[c])
+                if r > cr + np.float32(window):
+                    break
+                el = ((r <= cr) if surf else (r > cr), surf and r > cr)
+                d = _sq_np(q[i], ref[c])
+                for s in range(2):
+                    if el[s] and d < up[s][0]:
+                        up[s] = [d, c]
+            for c in range(j - 1, -1, -1):
+                r = np.float32(ring[c])
+                if r < cr - np.float32(window):
+                    break
+                el = ((r >= cr) if surf else (r < cr), surf and r < cr)
+                d = _sq_np(q[i], ref[c])
+                for s in range(2):
+                    if el[s] and d <= dn[s][0]:
+                        dn[s] = [d, c]
+        for s in range(2):
+            u, d_ = up[s], dn[s]
+            cross_ties += u[1] >= 0 and d_[1] >= 0 and u[0] == d_[0]
+            best = d_ if d_[1] >= 0 and (u[1] < 0 or d_[0] <= u[0]) else u
+            out_d[s, i], out_j[s, i] = best
+    return out_j[0], out_j[1], out_d[0], out_d[1], cross_ties
+
+
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("truncate", [True, False])
+@pytest.mark.parametrize("surf", [False, True])
+def test_odom_corr_plain_ties_match_serial_walks(surf, truncate, shuffled):
+    """On lattice clouds, where equal distances occur within a side and
+    across the two sides, the plain version picks what the serial walks
+    pick: the minimum of (distance, index).  Ring ids sorted or not,
+    rows without a 1-NN, and a batch entry with an empty reference."""
+    rng = np.random.default_rng(5 + 2 * surf + truncate)
+    B, Q, M = 2, 96, 256
+    n_ref, n_q = np.array([220, 0], np.int32), np.array([150, 40], np.int32)
+    ref = _lattice(rng, (B, M, 3))
+    q = _lattice(rng, (B, Q, 3))
+    ring = np.sort(rng.integers(0, 16, size=(B, M)), axis=1)
+    if shuffled:    # out of order: breaks come early, at either kind of edge
+        ring = np.clip(ring + rng.integers(-2, 3, size=(B, M)), 0, 15)
+    ring = ring.astype(np.int32)
+    j1 = rng.integers(0, 220, size=(B, Q)).astype(np.int32)
+    j1[:, ::6] = -1
+    kw = dict(surf=surf, window=LoamConfig().ring_window, truncate=truncate)
+    out = TOC.odom_corr(_t(q), _t(ref), _t(ring), _t(j1), _t(n_q),
+                        _t(n_ref), **kw)
+    ties = 0
+    for b in range(B):
+        *want, cross = _serial_walks(q[b], ref[b], ring[b], j1[b], n_q[b],
+                                     n_ref[b], **kw)
+        ties += cross
+        for got, w in zip(out, want):
+            np.testing.assert_array_equal(got[b].numpy(), w)
+    assert ties > 0                              # the merge rule was used
+    assert (out[0][0].numpy() >= 0).sum() > Q // 2
+    assert (out[0][1].numpy() == -1).all()       # the empty reference
+    assert (out[0][0].numpy()[::6] == -1).all()  # rows without a 1-NN
+    if surf:
+        assert (out[1][0].numpy() >= 0).sum() > Q // 4
+    else:
+        assert (out[1].numpy() == -1).all() and (out[3].numpy() > 1e29).all()
+
+
+@pytest.mark.parametrize("n_live", [0, 1, 150])
+def test_odom_correspondences_hands_the_walk_a_live_nearest(monkeypatch,
+                                                            n_live):
+    """The walk's contract takes j1 = -1 or a live index below n_ref (the
+    kernel and the plain version differ beyond it): the caller's gates
+    keep to that with a full, a one-point and an empty reference, also
+    for masked queries and queries beyond the 25 m^2 gate."""
+    cfg = LoamConfig()
+    rng = np.random.default_rng(n_live)
+    Q, M = 48, 256
+    xyz, rel, _ = _ring_cloud(rng, M, M)
+    mask = np.arange(M) < n_live
+    proj = (xyz[rng.integers(0, M, Q)]
+            + rng.normal(0.0, 0.05, (Q, 3))).astype(np.float32)
+    proj[::7] += 50.0                            # beyond the gate
+    seen = []
+    walk = TOC.odom_corr
+
+    def spy(q, ref, ring, j1, n_q, n_ref, **kw):
+        seen.append((j1.clone(), n_ref.clone()))
+        return walk(q, ref, ring, j1, n_q, n_ref, **kw)
+
+    monkeypatch.setattr(TOC, "odom_corr", spy)
+    out = TOC.odom_correspondences(
+        _t(proj), _t(np.arange(Q) < Q - 4), _t(xyz), _t(mask),
+        torch.trunc(_t(rel)).to(torch.int32), torch.tensor(Q - 4),
+        cfg.odom_nn_gate_sq, cfg.ring_window, True, surf=True)
+    (j1, n_ref), = seen
+    assert int(n_ref) == n_live
+    assert ((j1 == -1) | ((j1 >= 0) & (j1 < n_ref[:, None]))).all()
+    assert (j1[0, ::7] == -1).all() and (j1[0, Q - 4:] == -1).all()
+    assert torch.equal(out[0], j1[0].long())
+    if n_live > 1:
+        assert (j1 >= 0).sum() > Q // 2
+
+
+@pytest.mark.parametrize("Q,M,n_ref,tq,tm", [(64, 256, 200, 64, 128),
+                                             (96, 128, 128, 32, 128),
+                                             (40, 128, 1, 40, 128),
+                                             (64, 256, 0, 16, 64)])
+def test_knn_topk_plain_nearest_ties_match_argmin(Q, M, n_ref, tq, tm):
+    """k=1 on lattice clouds against argmin over float32 distances taken
+    in the kernels' order: ties go to the smaller index, an empty
+    reference reads (0, 1e30)."""
+    rng = np.random.default_rng(Q + n_ref)
+    ref = _lattice(rng, (M, 3))
+    q = _lattice(rng, (Q, 3))
+    idx, d2 = TKN.knn_topk(_t(q)[None], _t(ref)[None],
+                           torch.tensor([n_ref], dtype=torch.int32), 1,
+                           tq=tq, tm=tm)
+    assert idx.shape == d2.shape == (1, Q, 1)
+    if n_ref == 0:
+        assert (idx.numpy() == 0).all()
+        assert (d2.numpy() == np.float32(1e30)).all()
+        return
+    dist = np.array([[_sq_np(q[i], ref[j]) for j in range(n_ref)]
+                     for i in range(Q)], np.float32)
+    want = dist.argmin(1)
+    np.testing.assert_array_equal(idx[0, :, 0].numpy(), want)
+    np.testing.assert_array_equal(d2[0, :, 0].numpy(),
+                                  dist[np.arange(Q), want])
+    if n_ref > 1:       # ties did occur, and the first index took them
+        assert ((dist == dist.min(1, keepdims=True)).sum(1) > 1).sum() > Q // 4
