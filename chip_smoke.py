@@ -7,9 +7,9 @@ Phases, each of which raises (non-zero exit) on failure:
   2. build every kernel from loam_tpu_torch/csrc (one nvcc per source,
      all started together);
   3. hold each kernel against its plain PyTorch version at the replays'
-     shapes on seeded inputs (indices, bit-fields and coordinates equal,
-     squared distances within 1e-6 relative; the odometry's 1-NN and
-     ring-walk kernels bit for bit, also on tie-heavy lattice clouds);
+     shapes on seeded inputs, every output bit for bit (indices,
+     bit-fields, coordinates and squared distances), the neighbour kernels
+     also on tie-heavy lattice clouds;
      time both with CUDA events (median of 20 single calls, which for a
      kernel of a few microseconds is the wrapper's host time; device_ms
      is the time a call with the host out of the way, 50 calls queued
@@ -50,18 +50,27 @@ ROOT = Path(__file__).resolve().parent
 SEED = 21
 FRAMES = 13
 N_AZIMUTH = 1800
-REL_TOL = 1e-6     # squared distances, kernel vs plain
 ATE_GATE = 0.05    # metres, integrated trajectory vs the golden oracle
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # fp32 outside the tensor cores
 PAIR_OPS = 9       # 3 sub, 3 mul, 2 add, 1 compare per query/point pair
-# Call ms of the one-thread-a-query versions that the redesigned kernels
-# replaced, by kernel and shape (the bracketed times of PERF.md's kernel
-# table; NVIDIA H100 80GB HBM3, 700.00 W).  Printed beside the new times
-# on the text lines only: the kernels JSON holds what this run measured.
-SERIAL_MS = {
-    "knn_topk": {"Q=256,M=2048,": 0.0627, "Q=512,M=16384,": 0.2656},
-    "odom_corr": {"Q=256,M=2048,": 0.1353, "Q=512,M=16384,": 0.4219},
+# Times of the versions that the redesigned kernels replaced, by kernel
+# and shape prefix (the bracketed times of PERF.md's kernel table; NVIDIA
+# H100 80GB HBM3, 700.00 W).  Printed beside the new times on the text
+# lines only: the kernels JSON holds what this run measured.
+# name -> (what it was, how it was timed, {shape prefix: ms})
+EARLIER_MS = {
+    "knn_topk": ("the one-thread-a-query kernel", "a call",
+                 {"Q=256,M=2048,": 0.0627, "Q=512,M=16384,": 0.2656}),
+    "odom_corr": ("the one-thread-a-query kernel", "a call",
+                  {"Q=256,M=2048,": 0.1353, "Q=512,M=16384,": 0.4219}),
+    "knn_topk_dyn": ("the one-thread-a-query kernel", "on the device",
+                     {"Q=2048,M=32768,": 0.3393, "Q=8192,M=65536,": 0.2228}),
+    "knn_topk_dyn_k8": ("the one-thread-a-query kernel", "on the device",
+                        {"Q=8192,M=65536,": 0.3545}),
+    "kselect": ("the one-warp-a-query kernel", "on the device",
+                {"Q=8192,C=8,k=5,": 0.0093, "Q=8192,C=24,k=5,": 0.0091,
+                 "Q=2048,C=864,k=24,": 0.0276}),
 }
 
 # name -> (config changes, wrappers that must launch, must not launch)
@@ -145,33 +154,16 @@ def bound(n_bytes: float, n_ops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def _rel_err(a, b):
-    a, b = a.double().cpu(), b.double().cpu()
-    live = (a < 1e28) | (b < 1e28)
-    if not live.any():
-        return 0.0
-    return float(((a - b).abs() / b.abs().clamp(min=1e-12))[live].max())
-
-
-def _abs_err(a, b):
-    a, b = a.double().cpu(), b.double().cpu()
-    live = (a < 1e28) | (b < 1e28)
-    return float((a - b).abs()[live].max()) if live.any() else 0.0
-
-
-def _compare(name, kernel_out, plain_out, n_idx):
-    """First n_idx outputs are indices, bit-fields or coordinates (must be
-    equal), the rest squared distances (within REL_TOL).  Returns max abs
-    error."""
-    for k, p in zip(kernel_out[:n_idx], plain_out[:n_idx]):
-        if not torch.equal(k.cpu(), p.cpu()):
-            bad = int((k.cpu() != p.cpu()).sum())
-            raise AssertionError(f"{name}: {bad} exact entries differ")
+def _compare(name, kernel_out, plain_out):
+    """Every output of the kernel must equal the plain version's, bit for
+    bit.  Returns the largest absolute difference found (0.0 to pass)."""
     err = 0.0
-    for k, p in zip(kernel_out[n_idx:], plain_out[n_idx:]):
-        if _rel_err(k, p) > REL_TOL:
-            raise AssertionError(f"{name}: d2 off by {_rel_err(k, p)} rel")
-        err = max(err, _abs_err(k, p))
+    for k, p in zip(kernel_out, plain_out):
+        if k.dtype != p.dtype or not torch.equal(k, p):
+            bad = int((k != p).sum())
+            raise AssertionError(f"{name}: {bad} entries differ from the "
+                                 f"plain version")
+        err = max(err, float((k.double() - p.double()).abs().max()))
     return err
 
 
@@ -244,7 +236,7 @@ def kernel_phase(dev, raw, msk, cfg):
                                           tq=256, tm=512)
         shapes.append(dict(
             shape=f"Q={Q},M={M},live={live},k=1" + (",lattice" * ties),
-            max_abs_err=_compare("knn_topk", run_k(), run_p(), 2),
+            max_abs_err=_compare("knn_topk", run_k(), run_p()),
             ms=time_ms(run_k), device_ms=device_ms(run_k),
             plain_ms=time_ms(run_p),
             library_ms=time_ms(lambda: _library_knn(q[0], ref[0, :live], 1)),
@@ -253,10 +245,46 @@ def kernel_phase(dev, raw, msk, cfg):
         "loam_tpu/ops/pallas/knn_topk.py:63", shapes)
 
     # ---- knn_topk_dyn with tile windows: the mapping 5-NN (margin 1 m)
-    # and the hybrid cadence's 8-candidate gather (margin 2 m)
+    # and the hybrid cadence's 8-candidate gather (margin 2 m), every
+    # output compared exactly.  First a lattice shape full of exact ties:
+    # five live query blocks (the last with rows past n_q), one that sees
+    # 3 references, one with an empty window, one whose window needs both
+    # clamps, three dead blocks.
+    def windowed(name, k, q, ref, n_q, n_ref_i, t_lo, t_hi, tq, tm, note=""):
+        Q, M = q.shape[1], ref.shape[1]
+        nq_t = torch.tensor([n_q], **i32)
+        nr_t = torch.tensor([n_ref_i], **i32)
+        run_k = lambda: KN._launch(q, ref, nq_t, nr_t, k, t_lo, t_hi, tq, tm)
+        run_p = lambda: KN.knn_topk_plain(q, ref, nq_t, nr_t, k, t_lo, t_hi,
+                                          tq=tq, tm=tm)
+        # references each live query block really scans
+        blocks = -(-n_q // tq)
+        seen = (torch.clamp(t_hi[0, :blocks].long() * tm, max=n_ref_i)
+                - t_lo[0, :blocks].long().clamp(min=0) * tm).clamp(min=0)
+        pairs = int(seen.sum()) * tq
+        return dict(
+            shape=f"Q={Q},M={M},live={n_q}x{n_ref_i},k={k},pairs={pairs}"
+                  + note,
+            max_abs_err=_compare(name, run_k(), run_p()),
+            ms=time_ms(run_k), device_ms=device_ms(run_k),
+            plain_ms=time_ms(run_p),
+            # materialises the live (n_q, n_ref) matrix: 1.2 GB at the
+            # largest shape
+            library_ms=time_ms(lambda: _library_knn(
+                q[0, :n_q], ref[0, :n_ref_i], k), reps=5),
+            **bound(12 * (n_q + n_ref_i) + 8 * k * blocks * tq,
+                    PAIR_OPS * pairs))
+
+    tq, tm = 256, 512
     for k, margin, name in ((5, 1.0, "knn_topk_dyn"),
                             (8, 2.0, "knn_topk_dyn_k8")):
-        shapes = []
+        Q, M = 8 * tq, 8 * tm
+        t_lo = torch.tensor([[0, 7, 3, 2, -1, 0, 0, 0]], **i32)
+        t_hi = torch.tensor([[8, 8, 3, 5, 99, 8, 8, 8]], **i32)
+        shapes = [windowed(
+            name, k, torch.tensor(lattice(rng, (1, Q, 3)), device=dev),
+            torch.tensor(lattice(rng, (1, M, 3)), device=dev),
+            4 * tq + tq // 2 + 1, 7 * tm + 3, t_lo, t_hi, tq, tm, ",lattice")]
         sizes = ((2048, 32768, 1500, 25000), (8192, 65536, 6000, 50000))
         for Q, M, n_q, n_ref_i in sizes if k == 5 else sizes[1:]:
             half = np.array([60.0, 20.0, 5.0])
@@ -271,33 +299,13 @@ def kernel_phase(dev, raw, msk, cfg):
             qp[0, :n_q] = q_np
             q = torch.tensor(qp, device=dev)
             ref = torch.tensor(refp, device=dev)
-            nq_t = torch.tensor([n_q], **i32)
-            nr_t = torch.tensor([n_ref_i], **i32)
             mask = torch.arange(M, device=dev) < n_ref_i
-            tq, tm = 256, 512
-            t_lo, t_hi = KN.tile_windows(q[0, :, 0], nq_t[0], ref[0, :, 0],
-                                         mask, tq, tm, margin + 1e-3)
-            t_lo, t_hi = t_lo[None].contiguous(), t_hi[None].contiguous()
-            run_k = lambda: KN._launch(q, ref, nq_t, nr_t, k, t_lo, t_hi, tq,
-                                       tm)
-            run_p = lambda: KN.knn_topk_plain(q, ref, nq_t, nr_t, k, t_lo,
-                                              t_hi, tq=tq, tm=tm)
-            # references each live query block really scans
-            blocks = -(-n_q // tq)
-            seen = (torch.clamp(t_hi[0, :blocks].long() * tm, max=n_ref_i)
-                    - t_lo[0, :blocks].long() * tm).clamp(min=0)
-            pairs = int(seen.sum()) * tq
-            shapes.append(dict(
-                shape=f"Q={Q},M={M},live={n_q}x{n_ref_i},k={k},"
-                      f"pairs={pairs}",
-                max_abs_err=_compare(name, run_k(), run_p(), 1),
-                ms=time_ms(run_k), device_ms=device_ms(run_k),
-                plain_ms=time_ms(run_p),
-                # materialises the live (n_q, n_ref) matrix: 1.2 GB here
-                library_ms=time_ms(lambda: _library_knn(
-                    q[0, :n_q], ref[0, :n_ref_i], k), reps=5),
-                **bound(12 * (n_q + n_ref_i) + 8 * k * blocks * tq,
-                        PAIR_OPS * pairs)))
+            t_lo, t_hi = KN.tile_windows(
+                q[0, :, 0], torch.tensor(n_q, **i32), ref[0, :, 0], mask, tq,
+                tm, margin + 1e-3)
+            shapes.append(windowed(name, k, q, ref, n_q, n_ref_i,
+                                   t_lo[None].contiguous(),
+                                   t_hi[None].contiguous(), tq, tm))
         add(name, "knn_topk_dyn", "loam_tpu_torch/csrc/knn_topk.cu",
             "loam_tpu/ops/pallas/knn_topk.py:133", shapes)
 
@@ -335,7 +343,7 @@ def kernel_phase(dev, raw, msk, cfg):
         shapes.append(dict(
             shape=f"Q={Q},M={M},live={live},{'surf' if surf else 'corner'},"
                   f"visited={visited}" + (",lattice" * ties),
-            max_abs_err=_compare("odom_corr", run_k(), run_p(), 4),
+            max_abs_err=_compare("odom_corr", run_k(), run_p()),
             ms=time_ms(run_k), device_ms=device_ms(run_k),
             plain_ms=time_ms(run_p), library_ms=None,
             # + a ring compare per visited point
@@ -366,24 +374,33 @@ def kernel_phase(dev, raw, msk, cfg):
     add("select_walk", "select_walk", "loam_tpu_torch/csrc/select_walk.cu",
         "loam_tpu/ops/pallas/select_walk.py:81", [dict(
             shape=f"R={R},W={W},steps={steps}",
-            max_abs_err=_compare("select_walk", run_k(), run_p(), 4),
+            max_abs_err=_compare("select_walk", run_k(), run_p()),
             ms=time_ms(run_k), device_ms=device_ms(run_k),
             plain_ms=time_ms(run_p, reps=5), library_ms=None,
             **bound(4 * steps + 5 * 4 * R * (W // 32), 20 * steps))])
 
-    # ---- kselect: the hybrid re-rank (C=8), the cell re-rank (C=24) and
-    # the 27-cell gather chunk (C=864: ~60% valid, the second half of
-    # every row's cells duplicated, some rows with fewer than k valid)
+    # ---- kselect, every output compared exactly: lattice candidates
+    # (exact ties in every row), the hybrid re-rank (C=8), the cell
+    # re-rank (C=24), the 27-cell gather chunk at k=1 (distances and one
+    # round: what the other 23 rounds of the next shape cost) and at k=24
+    # (C=864: ~60% valid, the second half of every row's cells
+    # duplicated, some rows with fewer than k valid)
     shapes = []
-    for Q, C, k in ((8192, 8, 5), (8192, 24, 5), (2048, 864, 24)):
-        q_np = rng.uniform(-30, 30, (Q, 3)).astype(np.float32)
-        cand_np = (q_np[:, None, :]
-                   + rng.normal(0, 0.8, (Q, C, 3))).astype(np.float32)
+    for Q, C, k, ties in ((8200, 24, 5, True), (1024, 864, 24, True),
+                          (8192, 8, 5, False), (8192, 24, 5, False),
+                          (2048, 864, 1, False), (2048, 864, 24, False)):
+        if ties:
+            q_np = lattice(rng, (Q, 3))
+            cand_np = lattice(rng, (Q, C, 3), half=3)
+        else:
+            q_np = rng.uniform(-30, 30, (Q, 3)).astype(np.float32)
+            cand_np = (q_np[:, None, :]
+                       + rng.normal(0, 0.8, (Q, C, 3))).astype(np.float32)
         valid_np = rng.uniform(size=(Q, C)) < 0.6
         if C == 864:
             cand_np[:, C // 2:] = cand_np[:, :C // 2]
-            valid_np[::7, k - 4:] = False       # fewer than k valid
-            valid_np[::64] = False              # none at all
+            valid_np[::7, max(k - 4, 0):] = False   # fewer than k valid
+            valid_np[::64] = False                  # none at all
         cand = torch.tensor(cand_np, device=dev)
         valid = torch.tensor(valid_np, device=dev)
         q = torch.tensor(q_np, device=dev)
@@ -397,8 +414,8 @@ def kernel_phase(dev, raw, msk, cfg):
 
         n_valid = int(valid.sum())
         shapes.append(dict(
-            shape=f"Q={Q},C={C},k={k},valid={n_valid}",
-            max_abs_err=_compare("kselect", run_k(), run_p(), 1),
+            shape=f"Q={Q},C={C},k={k},valid={n_valid}" + (",lattice" * ties),
+            max_abs_err=_compare("kselect", run_k(), run_p()),
             ms=time_ms(run_k), device_ms=device_ms(run_k),
             plain_ms=time_ms(run_p), library_ms=time_ms(run_lib),
             # 8 flops a valid candidate, then k scans of C compares
@@ -468,10 +485,10 @@ def main() -> int:
         for s in r["other_shapes"] + [r]:
             lib = "none" if s["library_ms"] is None \
                 else f"{s['library_ms']:.4f} ms"
-            was = "".join(
-                f", the one-thread-a-query kernel took {ms:.4f} ms a call"
-                for prefix, ms in SERIAL_MS.get(r["name"], {}).items()
-                if s["shape"].startswith(prefix))
+            what, how, by_shape = EARLIER_MS.get(r["name"], ("", "", {}))
+            was = "".join(f", {what} took {ms:.4f} ms {how}"
+                          for prefix, ms in by_shape.items()
+                          if s["shape"].startswith(prefix))
             print(f"kernel {r['name']}: max_abs_err {s['max_abs_err']:.3g}, "
                   f"{s['ms']:.4f} ms a call ({s['device_ms']:.4f} ms on the "
                   f"device){was}, plain {s['plain_ms']:.4f} ms, "

@@ -1,10 +1,12 @@
 // Exact fp32 squared distance shared by the neighbour-search kernels
-// (knn_topk.cu, knn_nearest.cu, odom_corr.cu).
+// (knn_topk.cu, knn_nearest.cu, odom_corr.cu, kselect.cu).
 //
 // (q - r)^2 in the order round(round(dx^2 + dy^2) + dz^2), every step an
 // explicit round-to-nearest intrinsic so that nvcc contracts nothing into
-// an FMA: the plain PyTorch versions (ops/nn.pairwise_sq_dists) run the
-// same IEEE sequence, and kernel and plain version agree bit for bit.
+// an FMA: the plain PyTorch versions (ops/nn.pairwise_sq_dists,
+// ops/cuda/kselect.masked_sq_dists) run the same IEEE sequence, and kernel
+// and plain version agree bit for bit.  Swapping the two points gives the
+// same bits: (r - q)^2 rounds like (q - r)^2.
 
 #pragma once
 

@@ -79,9 +79,10 @@ def knn_topk_plain(q, ref, n_q, n_ref, k, t_lo, t_hi, *, tq, tm):
 def _launch(q, ref, n_q, n_ref, k, t_lo, t_hi, tq, tm):
     B, Q, _ = q.shape
     M = ref.shape[1]
-    if k not in KERNEL_K or Q % tq or tq > 1024:
-        raise ValueError(f"knn kernel: unsupported k={k} tq={tq} Q={Q} "
-                         f"(k must be one of {KERNEL_K})")
+    if k not in KERNEL_K or tq < 1 or Q % tq or tm < 1:
+        raise ValueError(f"knn kernel: unsupported k={k} tq={tq} tm={tm} "
+                         f"Q={Q} (k must be one of {KERNEL_K}, Q a multiple "
+                         f"of tq)")
     nqb = Q // tq
     _build.require(q, torch.float32, (B, Q, 3), "q")
     _build.require(ref, torch.float32, (B, M, 3), "ref")

@@ -29,7 +29,8 @@ import torch
 import chip_smoke as CS
 
 HAND_WRITTEN = ("knn_kernel", "knn_nearest_kernel", "odom_corr_kernel",
-                "select_walk_kernel", "kselect_kernel")
+                "select_walk_kernel", "kselect_group_kernel",
+                "kselect_warp_kernel")
 SCALAR_READ = "aten::_local_scalar_dense"
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
 

@@ -24,6 +24,9 @@ from loam_tpu_torch.ops.cuda import kselect as KS
 from loam_tpu_torch.ops.cuda import odom_corr as OC
 from loam_tpu_torch.ops.cuda import select_walk as SW
 
+from torch_parity import (kselect_argsort, kselect_lattice_case,
+                          windowed_knn_case, windowed_knn_scalar)
+
 pytestmark = pytest.mark.gpu
 
 
@@ -65,6 +68,66 @@ def test_knn_kernel_matches_plain(cuda, k):
     idx_p, d2_p = KN.knn_topk_plain(q, ref, _i32([Q, Q], cuda), n_ref, k,
                                     full_lo, full_hi, tq=tq, tm=tm)
     assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
+
+
+@pytest.mark.parametrize("tq,tm", [(8, 16), (64, 6), (256, 64), (40, 10)])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_knn_windowed_kernel_ties_and_windows(cuda, k, tq, tm):
+    """The warp-a-query kernel on lattice clouds (exact ties in every
+    row) equals the plain version and the row-at-a-time reference bit for
+    bit: three problems of different live sizes, rows past n_q in a live
+    block, a block with fewer than K visible references, an empty window,
+    clamped windows, dead blocks, no live reference; windows that start
+    16-byte aligned and not (tm = 6, 10), and a tq that leaves warps of
+    the last block spare (40)."""
+    case = windowed_knn_case(tq, tm, seed=k)
+    q, ref, n_q, n_ref, t_lo, t_hi = (torch.tensor(a, device=cuda)
+                                      for a in case)
+    before = KN.knn_topk_dyn.launches
+    idx, d2 = KN.knn_topk_dyn(q, ref, n_q, n_ref, k, t_lo, t_hi, tq=tq, tm=tm)
+    assert KN.knn_topk_dyn.launches == before + 1
+    idx_p, d2_p = KN.knn_topk_plain(q, ref, n_q, n_ref, k, t_lo, t_hi,
+                                    tq=tq, tm=tm)
+    torch.cuda.synchronize()
+    assert idx.dtype == torch.int32 and d2.dtype == torch.float32
+    assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
+    want_idx, want_d2 = windowed_knn_scalar(*case, k, tq, tm)
+    np.testing.assert_array_equal(idx.cpu().numpy(), want_idx)
+    np.testing.assert_array_equal(d2.cpu().numpy(), want_d2)
+    assert (d2[0, tq:2 * tq] < 1e29).sum() == min(k, 3) * tq
+    assert (d2[1] == 1e30).all() and (idx[1] == 0).all()
+
+
+@pytest.mark.parametrize("k,margin", [(5, 1.0), (8, 2.0)])
+def test_knn_windowed_kernel_replay_shapes(cuda, k, margin):
+    """The mapping shapes (8192 queries against a 65536-point map, tile
+    windows from the sorted pruning axis), a surf-sized and a corner-sized
+    problem in one launch."""
+    rng = np.random.default_rng(k)
+    B, Q, M, tq, tm = 2, 8192, 65536, 256, 512
+    live = ((6000, 50000), (1500, 25000))
+    qp, refp = np.zeros((B, Q, 3), np.float32), np.zeros((B, M, 3), np.float32)
+    half = np.array([60.0, 20.0, 5.0])
+    for b, (nq, nr) in enumerate(live):
+        r = rng.uniform(-half, half, (nr, 3)).astype(np.float32)
+        refp[b, :nr] = r[np.argsort(r[:, 0], kind="stable")]
+        p = r[rng.integers(0, nr, nq)] + rng.normal(0, 0.3, (nq, 3))
+        qp[b, :nq] = p[np.argsort(p[:, 0], kind="stable")]
+    q, ref = torch.tensor(qp, device=cuda), torch.tensor(refp, device=cuda)
+    n_q, n_ref = _i32([n for n, _ in live], cuda), _i32([n for _, n in live],
+                                                        cuda)
+    windows = [KN.tile_windows(q[b, :, 0], n_q[b], ref[b, :, 0],
+                               torch.arange(M, device=cuda) < n_ref[b], tq, tm,
+                               margin + 1e-3) for b in range(B)]
+    t_lo = torch.stack([w[0] for w in windows]).contiguous()
+    t_hi = torch.stack([w[1] for w in windows]).contiguous()
+    idx, d2 = KN.knn_topk_dyn(q, ref, n_q, n_ref, k, t_lo, t_hi, tq=tq, tm=tm)
+    idx_p, d2_p = KN.knn_topk_plain(q, ref, n_q, n_ref, k, t_lo, t_hi,
+                                    tq=tq, tm=tm)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
+    assert (d2[0, :6000, k - 1] < margin).sum() > 3000
+    assert (d2[1, 1536:] == 1e30).all()
 
 
 @pytest.mark.parametrize("surf,truncate", [(False, True), (True, True),
@@ -257,6 +320,61 @@ def test_kselect_kernel_matches_plain(cuda, Q, C, k, frac):
     torch.cuda.synchronize()
     assert torch.equal(d2, d2_p) and torch.equal(pts, pts_p)
     assert (d2[::11] == 1e30).all() and (d2 < 1e29).any()
+
+
+# C, k, Q: the re-rank shapes (eight lanes a query), their edges (C = 1,
+# 30, 32), the warp kernel with and without 16-byte aligned rows (33, 866),
+# its limits, Q that leaves the last group or block ragged, and Q large
+# enough that a warp walks several queries
+KSELECT_LATTICE = [(8, 5, 37), (24, 5, 37), (24, 24, 1001), (1, 1, 9),
+                   (30, 7, 37), (32, 32, 131), (33, 5, 37), (36, 32, 6000),
+                   (864, 24, 37), (866, 24, 150), (1024, 32, 3000),
+                   (864, 1, 2048)]
+
+
+@pytest.mark.parametrize("C,k,Q", KSELECT_LATTICE)
+def test_kselect_kernel_lattice_matches_plain(cuda, C, k, Q):
+    """Lattice candidates (exact ties in every row), rows of fewer than k
+    and of no valid candidates: coordinates and distances equal the plain
+    version's and a stable argsort's, bit for bit."""
+    case = kselect_lattice_case(Q, C, k)
+    cand, valid, q = (torch.tensor(a, device=cuda) for a in case)
+    before = KS.knn_select.launches
+    pts, d2 = KS.knn_select(cand, valid, q, k)
+    assert KS.knn_select.launches == before + 1
+    pts_p, d2_p = KS.knn_select_plain(cand, valid, q, k)
+    torch.cuda.synchronize()
+    assert torch.equal(d2, d2_p) and torch.equal(pts, pts_p)
+    want_pts, want_d2 = kselect_argsort(*case, k)
+    np.testing.assert_array_equal(d2.cpu().numpy(), want_d2)
+    np.testing.assert_array_equal(pts.cpu().numpy(), want_pts)
+
+
+@pytest.mark.parametrize("Q,C,k", [(2048, 864, 24), (8192, 24, 5),
+                                   (8192, 8, 5)])
+def test_kselect_kernel_replay_shapes(cuda, Q, C, k):
+    """The gather chunk and the two re-rank shapes of the cached mapping
+    modes on continuous clouds, and the gather chunk once more from a
+    base pointer that is not 16-byte aligned (plain loads in place of
+    asynchronous copies)."""
+    rng = np.random.default_rng(C)
+    q_np = rng.uniform(-30, 30, (Q, 3)).astype(np.float32)
+    cand_np = (q_np[:, None] + rng.normal(0, 0.8, (Q, C, 3))).astype(
+        np.float32)
+    valid_np = rng.uniform(size=(Q, C)) < 0.6
+    valid_np[::7, max(k - 4, 0):] = False
+    cand, valid, q = (torch.tensor(a, device=cuda)
+                      for a in (cand_np, valid_np, q_np))
+    want = KS.knn_select_plain(cand, valid, q, k)
+    got = KS.knn_select(cand, valid, q, k)
+    shifted = torch.empty(cand.numel() + 1, device=cuda)[1:].view_as(cand)
+    shifted.copy_(cand)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    got_shifted = KS.knn_select(shifted, valid, q, k)
+    torch.cuda.synchronize()
+    for out in (got, got_shifted):
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    assert (want[1][:, 0] < 1e29).sum() > Q // 2
 
 
 def test_replay_modes_agree_with_cpu(cuda):

@@ -31,7 +31,8 @@ from loam_tpu_torch.ops.cuda import knn_topk as TKN
 from loam_tpu_torch.ops.cuda import odom_corr as TOC
 from loam_tpu_torch.ops.cuda import select_walk as TSW
 
-from torch_parity import to_port_cfg
+from torch_parity import (to_port_cfg, windowed_knn_case,
+                          windowed_knn_scalar)
 
 torch.set_num_threads(1)
 
@@ -403,3 +404,33 @@ def test_knn_topk_plain_nearest_ties_match_argmin(Q, M, n_ref, tq, tm):
                                   dist[np.arange(Q), want])
     if n_ref > 1:       # ties did occur, and the first index took them
         assert ((dist == dist.min(1, keepdims=True)).sum(1) > 1).sum() > Q // 4
+
+
+@pytest.mark.parametrize("k", [5, 8])
+def test_knn_topk_plain_windows_ties_match_scalar(k):
+    """The windowed k-NN on lattice clouds against the K smallest
+    (distance, index) pairs of the visible references taken one row at a
+    time: rows past n_q in a live block are searched, a block with fewer
+    than K visible references and one with an empty window pad with
+    (0, 1e30), dead blocks and a problem without references are all
+    fill."""
+    tq, tm = 8, 16
+    q, ref, n_q, n_ref, t_lo, t_hi = windowed_knn_case(tq, tm, seed=k)
+    idx, d2 = TKN.knn_topk_dyn(*(_t(a) for a in (q, ref, n_q, n_ref)), k,
+                               _t(t_lo), _t(t_hi), tq=tq, tm=tm)
+    want_idx, want_d2 = windowed_knn_scalar(q, ref, n_q, n_ref, t_lo, t_hi,
+                                            k, tq, tm)
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    np.testing.assert_array_equal(d2.numpy(), want_d2)
+    d2 = d2.numpy()
+    found = d2 < 1e29
+    assert found[0, int(n_q[0]):5 * tq].all()      # rows past n_q, live block
+    assert (found[0, tq:2 * tq].sum(1) == 3).all()  # fewer than K visible
+    assert not found[0, 2 * tq:3 * tq].any()        # empty window
+    assert not found[0, 5 * tq:].any()              # dead blocks
+    assert not found[1].any()                       # n_ref = 0
+    assert found[2, :tq].all() and not found[2, tq:].any()
+    # ties did decide: equal distances next to each other, indices rising
+    same = found[0, :, 1:] & (d2[0, :, 1:] == d2[0, :, :-1])
+    assert same.sum() > tq
+    assert (np.diff(idx.numpy()[0], axis=1)[same] > 0).all()

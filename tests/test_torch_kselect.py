@@ -19,6 +19,8 @@ from loam_tpu.ops.pallas import kselect as JK
 
 from loam_tpu_torch.ops.cuda import kselect as TK
 
+from torch_parity import kselect_argsort, kselect_lattice_case
+
 torch.set_num_threads(1)
 
 
@@ -116,3 +118,24 @@ def test_knn_select_cpu_runs_plain_and_limits_raise():
         TK.knn_select(torch.zeros(1, 1025, 3),
                       torch.ones(1, 1025, dtype=torch.bool),
                       torch.zeros(1, 3), 5)
+
+
+@pytest.mark.parametrize("C,k", [(8, 5), (24, 5), (33, 5), (864, 24)])
+def test_knn_select_plain_lattice_matches_stable_argsort(C, k):
+    """Lattice candidates (exact ties in every row) at the candidate
+    counts the kernel treats differently: the picks are the first k of a
+    stable argsort of the float32 distances, with rows of fewer than k
+    valid candidates (lowest-index invalid ones in the tail) and rows of
+    none (candidates 0..k-1 at 1e30)."""
+    cand, valid, q = kselect_lattice_case(37, C, k)
+    pts, d2 = TK.knn_select_plain(torch.tensor(cand), torch.tensor(valid),
+                                  torch.tensor(q), k)
+    want_pts, want_d2 = kselect_argsort(cand, valid, q, k)
+    np.testing.assert_array_equal(d2.numpy(), want_d2)
+    np.testing.assert_array_equal(pts.numpy(), want_pts)
+    d2 = d2.numpy()
+    n_valid = valid.sum(1)
+    np.testing.assert_array_equal((d2 < 1e29).sum(1), np.minimum(n_valid, k))
+    assert (n_valid[::5] < k).all() and (n_valid[::11] == 0).all()
+    np.testing.assert_array_equal(pts.numpy()[::11], cand[::11, :k])
+    assert ((d2[:, 1:] == d2[:, :-1]) & (d2[:, 1:] < 1e29)).sum() > 10

@@ -97,3 +97,83 @@ def assert_same_map(jtable, ttable):
     np.testing.assert_allclose(np.array([b[k] for k in keys]),
                                np.array([a[k] for k in keys]), atol=1e-4)
     return len(keys)
+
+
+# ---- tie-heavy inputs and scalar references for the neighbour kernels
+
+def lattice(rng, shape, half: int = 2):
+    """Coordinates on a 0.25 m lattice: many exactly equal distances."""
+    return (rng.integers(-half, half + 1, size=shape) * 0.25).astype(
+        np.float32)
+
+
+def sq_dists_np(a, b):
+    """float32 round(round(dx^2 + dy^2) + dz^2) of a - b, the kernels'
+    order; a and b broadcast to (..., 3)."""
+    d = (a - b).astype(np.float32)
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + \
+        d[..., 2] * d[..., 2]
+
+
+def windowed_knn_case(tq: int, tm: int, seed: int = 0):
+    """Three lattice problems over 8 query blocks and 8 reference tiles.
+    Problem 0: five live blocks, the last with rows past n_q; block 1 sees
+    3 references (the ragged last tile), block 2 an empty window, block 4
+    a window that needs both clamps; blocks 5-7 are dead.  Problem 1: no
+    live reference.  Problem 2: one live query, every reference live.
+    Returns NumPy arrays (q, ref, n_q, n_ref, t_lo, t_hi)."""
+    rng = np.random.default_rng(seed)
+    B, nqb, tiles = 3, 8, 8
+    Q, M = nqb * tq, tiles * tm
+    q, ref = lattice(rng, (B, Q, 3)), lattice(rng, (B, M, 3))
+    n_q = np.array([4 * tq + tq // 2 + 1, Q, 1], np.int32)
+    n_ref = np.array([7 * tm + 3, 0, M], np.int32)
+    t_lo = rng.integers(0, 3, (B, nqb)).astype(np.int32)
+    t_hi = rng.integers(4, tiles + 1, (B, nqb)).astype(np.int32)
+    t_lo[0, :5] = (0, 7, 3, 2, -1)
+    t_hi[0, :5] = (8, 8, 3, 5, 99)
+    return q, ref, n_q, n_ref, t_lo, t_hi
+
+
+def windowed_knn_scalar(q, ref, n_q, n_ref, t_lo, t_hi, k, tq, tm):
+    """The contract of ops/cuda/knn_topk one row at a time: the k smallest
+    (distance, index) pairs of the references a row's block sees, else
+    (0, 1e30).  Returns (idx, d2)."""
+    B, Q, _ = q.shape
+    M, nqb = ref.shape[1], Q // tq
+    idx = np.zeros((B, Q, k), np.int32)
+    d2 = np.full((B, Q, k), 1e30, np.float32)
+    for b in range(B):
+        live_blocks = min(max(-(-int(n_q[b]) // tq), 1), nqb)
+        for i in range(live_blocks * tq):
+            blk = i // tq
+            j = np.arange(M)
+            j = j[(j < n_ref[b]) & (j // tm >= t_lo[b, blk])
+                  & (j // tm < t_hi[b, blk])]
+            d = sq_dists_np(q[b, i], ref[b, j])
+            best = np.lexsort((j, d))[:k]
+            idx[b, i, :len(best)] = j[best]
+            d2[b, i, :len(best)] = d[best]
+    return idx, d2
+
+
+def kselect_lattice_case(Q: int, C: int, k: int, seed: int = 0):
+    """Lattice candidates around lattice queries, about 70% valid; every
+    fifth row has fewer than k valid candidates, every eleventh none.
+    Returns NumPy arrays (cand, valid, q)."""
+    rng = np.random.default_rng(seed + C)
+    cand = lattice(rng, (Q, C, 3), half=3)
+    valid = rng.uniform(size=(Q, C)) < 0.7
+    valid[::5, k - 2:] = False
+    valid[::11] = False
+    return cand, valid, lattice(rng, (Q, 3))
+
+
+def kselect_argsort(cand, valid, q, k):
+    """The contract of ops/cuda/kselect by a stable argsort of the float32
+    distances (1e30 where invalid).  Returns (pts, d2)."""
+    d = np.where(valid, sq_dists_np(cand, q[:, None, :]),
+                 np.float32(1e30)).astype(np.float32)
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(cand, order[..., None], 1),
+            np.take_along_axis(d, order, 1))
