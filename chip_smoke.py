@@ -71,6 +71,9 @@ EARLIER_MS = {
     "kselect": ("the one-warp-a-query kernel", "on the device",
                 {"Q=8192,C=8,k=5,": 0.0093, "Q=8192,C=24,k=5,": 0.0091,
                  "Q=2048,C=864,k=24,": 0.0276}),
+    "select_walk": ("the one-thread-a-ring kernel", "on the device",
+                    {"B=1,R=16,": 0.0919, "B=8,R=272,": 0.1188,
+                     "B=1,R=208,": 0.1137}),
 }
 
 # name -> (config changes, wrappers that must launch, must not launch)
@@ -189,12 +192,9 @@ def kernel_phase(dev, raw, msk, cfg):
     """Each kernel vs its plain version at the replays' shapes.  Returns
     one row a kernel (its largest shape), with the other shapes' rows
     under "other_shapes"."""
-    from loam_tpu_torch import frontend
-    from loam_tpu_torch.ops import features as FT
     from loam_tpu_torch.ops.cuda import knn_topk as KN
     from loam_tpu_torch.ops.cuda import kselect as KS
     from loam_tpu_torch.ops.cuda import odom_corr as OC
-    from loam_tpu_torch.ops.cuda import select_walk as SW
 
     rng = np.random.default_rng(SEED)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -352,32 +352,7 @@ def kernel_phase(dev, raw, msk, cfg):
     add("odom_corr", "odom_corr", "loam_tpu_torch/csrc/odom_corr.cu",
         "loam_tpu/ops/pallas/odom_corr.py:65", shapes)
 
-    # ---- select_walk: every ring of every frame of the replay
-    sweep = frontend.ingest_sweep(torch.tensor(raw, device=dev),
-                                  torch.tensor(msk, device=dev), cfg)
-    curv, gap, pre, counts = FT.selection_inputs(sweep, cfg)
-    W = cfg.ring_width
-    cm, fm = FT.walk_meta(curv.reshape(-1, W), gap.reshape(-1, W),
-                          counts.reshape(-1), cfg)
-    cm, fm = cm[None].contiguous(), fm[None].contiguous()
-    p0 = SW.pack_bits(pre.reshape(-1, W))[None]
-    kw = dict(n_sub=cfg.n_subregions, subw=W // cfg.n_subregions + 8, W=W,
-              max_sharp=cfg.max_sharp_per_subregion,
-              max_less_sharp=cfg.max_less_sharp_per_subregion,
-              max_flat=cfg.max_flat_per_subregion)
-    run_k = lambda: SW._launch(cm, fm, p0, **kw)
-    run_p = lambda: SW.select_walk_plain(cm, fm, p0, **kw)
-    R = cm.shape[1]
-    # a walk reads its in-span meta words (bit 17) at most once, about 20
-    # integer operations a step; one bit-field in, four out
-    steps = int(((cm >> 17) & 1).sum()) + int(((fm >> 17) & 1).sum())
-    add("select_walk", "select_walk", "loam_tpu_torch/csrc/select_walk.cu",
-        "loam_tpu/ops/pallas/select_walk.py:81", [dict(
-            shape=f"R={R},W={W},steps={steps}",
-            max_abs_err=_compare("select_walk", run_k(), run_p()),
-            ms=time_ms(run_k), device_ms=device_ms(run_k),
-            plain_ms=time_ms(run_p, reps=5), library_ms=None,
-            **bound(4 * steps + 5 * 4 * R * (W // 32), 20 * steps))])
+    rows.append(select_walk_row(dev, raw, msk, cfg))
 
     # ---- kselect, every output compared exactly: lattice candidates
     # (exact ties in every row), the hybrid re-rank (C=8), the cell
@@ -427,6 +402,61 @@ def kernel_phase(dev, raw, msk, cfg):
     return rows
 
 
+def select_walk_row(dev, raw, msk, cfg):
+    """select_walk at one frame's rings (online use at 10 Hz), bench.py's
+    batch (B=8 scenarios x 17 frames, filled by tiling the replay's rings)
+    and every ring of the replay (the row's own shape); every output
+    compared exactly.  The serial NumPy walk of tests/torch_parity counts
+    what these inputs need: candidates walked (meta words read), picks,
+    and the kernel's rounds (32-candidate chunks plus picks)."""
+    from loam_tpu_torch import frontend
+    from loam_tpu_torch.ops import features as FT
+    from loam_tpu_torch.ops.cuda import select_walk as SW
+    from torch_parity import serial_walk, walk_kwargs
+
+    sweep = frontend.ingest_sweep(torch.tensor(raw, device=dev),
+                                  torch.tensor(msk, device=dev), cfg)
+    curv, gap, pre, counts = FT.selection_inputs(sweep, cfg)
+    W = cfg.ring_width
+    cm_all, fm_all = FT.walk_meta(curv.reshape(-1, W), gap.reshape(-1, W),
+                                  counts.reshape(-1), cfg)
+    pre = pre.reshape(-1, W)
+    kw = walk_kwargs(cfg, W)
+    _, need = serial_walk(cm_all.cpu().numpy(), fm_all.cpu().numpy(),
+                          pre.cpu().numpy(), **kw)
+    n_rings = cm_all.shape[0]
+    shapes = []
+    for B, R in ((1, cfg.n_scans), (8, 17 * cfg.n_scans), (1, n_rings)):
+        idx = torch.arange(B * R, device=dev) % n_rings
+        cm = cm_all[idx].reshape(B, R, -1).contiguous()
+        fm = fm_all[idx].reshape(B, R, -1).contiguous()
+        p0 = SW.pack_bits(pre[idx]).reshape(B, R, -1)
+        n = {k: int(v[idx.cpu().numpy()].sum()) for k, v in need.items()}
+        max_rounds = int(need["rounds"][idx.cpu().numpy()].max())
+        run_k = lambda: SW._launch(cm, fm, p0, **kw)
+        run_p = lambda: SW.select_walk_plain(cm, fm, p0, **kw)
+        shapes.append(dict(
+            shape=f"B={B},R={R},W={W},walked={n['walked']},"
+                  f"picks={n['picks']},rounds={n['rounds']},"
+                  f"max_rounds={max_rounds}",
+            max_abs_err=_compare("select_walk", run_k(), run_p()),
+            ms=time_ms(run_k), device_ms=device_ms(run_k),
+            plain_ms=time_ms(run_p, reps=5), library_ms=None,
+            # 4 bytes a walked meta word and a uint32 word of each
+            # bit-field (pre-picked in, four out: the walk needs no more,
+            # whatever the wrapper's int64 holds); about 20 integer
+            # operations a walked candidate
+            **bound(4 * n["walked"] + 5 * 4 * B * R * (W // 32),
+                    20 * n["walked"])))
+    torch.cuda.synchronize()
+    return dict(name="select_walk", counter="select_walk", route="cuda",
+                source="loam_tpu_torch/csrc/select_walk.cu",
+                replaces="loam_tpu/ops/pallas/select_walk.py:81",
+                **{**shapes[-1], "max_abs_err": max(
+                    s["max_abs_err"] for s in shapes)},
+                other_shapes=shapes[:-1])
+
+
 def replay(name, raw_t, msk_t):
     """One replay on the card after a 3-frame warm-up; returns (outputs,
     launch counts, seconds).  Raises when a kernel of this replay's path
@@ -461,6 +491,22 @@ def replay(name, raw_t, msk_t):
     return outs, counts, seconds
 
 
+def print_rows(rows, card: str) -> None:
+    for r in rows:
+        for s in r["other_shapes"] + [r]:
+            lib = "none" if s["library_ms"] is None \
+                else f"{s['library_ms']:.4f} ms"
+            what, how, by_shape = EARLIER_MS.get(r["name"], ("", "", {}))
+            was = "".join(f", {what} took {ms:.4f} ms {how}"
+                          for prefix, ms in by_shape.items()
+                          if s["shape"].startswith(prefix))
+            print(f"kernel {r['name']}: max_abs_err {s['max_abs_err']:.3g}, "
+                  f"{s['ms']:.4f} ms a call ({s['device_ms']:.4f} ms on the "
+                  f"device){was}, plain {s['plain_ms']:.4f} ms, "
+                  f"library {lib}, bound {s['bound_ms']:.6f} ms by "
+                  f"{s['bound_by']} ({s['shape']}) [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -476,24 +522,12 @@ def main() -> int:
     configure_numerics()
 
     secs = _build.build_all()
-    print(f"built {len(_build.KERNEL_SOURCES)} kernel libraries in "
-          f"{secs:.1f} s", flush=True)
+    print(f"built {len(_build.KERNEL_SOURCES)} kernel libraries in {secs:.1f} s from "
+          f"{Path(_build.CSRC).parent}", flush=True)
 
     raw, msk = make_sweeps()
     rows = kernel_phase(dev, raw, msk, replay_config("default"))
-    for r in rows:
-        for s in r["other_shapes"] + [r]:
-            lib = "none" if s["library_ms"] is None \
-                else f"{s['library_ms']:.4f} ms"
-            what, how, by_shape = EARLIER_MS.get(r["name"], ("", "", {}))
-            was = "".join(f", {what} took {ms:.4f} ms {how}"
-                          for prefix, ms in by_shape.items()
-                          if s["shape"].startswith(prefix))
-            print(f"kernel {r['name']}: max_abs_err {s['max_abs_err']:.3g}, "
-                  f"{s['ms']:.4f} ms a call ({s['device_ms']:.4f} ms on the "
-                  f"device){was}, plain {s['plain_ms']:.4f} ms, "
-                  f"library {lib}, bound {s['bound_ms']:.6f} ms by "
-                  f"{s['bound_by']} ({s['shape']}) [{card}]", flush=True)
+    print_rows(rows, card)
 
     from golden.pipeline import run_pipeline
 

@@ -55,15 +55,15 @@ class LoamConfig:
     # already-picked/suppressed entries consume sorted ranks, so a
     # truncated scan can miss late qualifying picks.  <= 0 (default)
     # scans the whole subregion — exact; positive values trade exactness
-    # for a shorter walk.  The port supports only the full scan.
+    # for a shorter walk (the walk kernel's corner_k / flat_k).
     corner_scan_k: int = 0
     flat_scan_k: int = 0
     # Greedy-selection strategy (all three produce identical labels,
     # pinned by tests/test_select_walk.py + tests/test_select_argmax.py).
     # The port always runs the walk as its CUDA kernel
-    # (csrc/select_walk.cu), whatever select_walk_kernel says;
-    # select_argmax=True (the fixed-trip-count pick-iteration form) is
-    # not ported and raises.
+    # (csrc/select_walk.cu), whatever select_walk_kernel says, and for
+    # select_argmax=True too (the same labels); select_argmax with a
+    # scan depth raises ValueError, as in the JAX package.
     select_argmax: bool = False
     select_walk_kernel: bool = False
 

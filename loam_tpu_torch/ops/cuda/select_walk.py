@@ -5,7 +5,10 @@ Contract (both versions): corner_meta/flat_meta (B, R, n_sub*subw)
 int32 packed walk metadata in walk order (pack_walk_meta), picked0
 (B, R, W/32) int64 holding uint32 bit-field words.  Returns
 (sharp, less_sharp, flat, picked) bit-fields, each (B, R, W/32) int64.
-The wrapper counts its kernel launches in ``select_walk.launches``.
+corner_k / flat_k cut each corner / flat walk at that many candidates
+(config corner_scan_k / flat_scan_k; 0 or less walks the whole
+subregion).  The wrapper counts its kernel launches in
+``select_walk.launches``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,12 @@ _UP_SHIFT = 11
 _DN_SHIFT = 14
 _VALID_SHIFT = 17
 _QUAL_SHIFT = 18
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 10 + (ctypes.c_void_p,)
+
+
+def walk_limit(depth: int, subw: int) -> int:
+    """Candidates a walk may visit: the depth knob, else the subregion."""
+    return subw if depth <= 0 else min(depth, subw)
 
 
 def pack_walk_meta(idxc, valid, qual, up_reach, down_reach):
@@ -55,7 +63,8 @@ def unpack_bits(words, W: int):
 
 
 def select_walk_plain(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
-                      max_sharp, max_less_sharp, max_flat):
+                      max_sharp, max_less_sharp, max_flat, corner_k=0,
+                      flat_k=0):
     """The same walks as a batched masked loop over walk steps, all rings
     at once; a ring that has stopped stays inert until every ring has."""
     B, R, K = corner_meta.shape
@@ -87,7 +96,8 @@ def select_walk_plain(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
             meta = cm if corner else fm
             cnt = torch.zeros(n, dtype=torch.int32, device=dev)
             active = torch.ones(n, dtype=torch.bool, device=dev)
-            for t in range(subw):
+            for t in range(walk_limit(corner_k if corner else flat_k,
+                                      subw)):
                 ind, up, dn, valid, qual = unpack(meta[:, base + t].long())
                 qualify = active & valid & qual & ~picked[rows, ind]
                 cnt = cnt + qualify.to(torch.int32)
@@ -109,11 +119,12 @@ def select_walk_plain(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
 
 
 def select_walk(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
-                max_sharp, max_less_sharp, max_flat):
+                max_sharp, max_less_sharp, max_flat, corner_k=0, flat_k=0):
     """Run the walks for B x R rings: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
     kw = dict(n_sub=n_sub, subw=subw, W=W, max_sharp=max_sharp,
-              max_less_sharp=max_less_sharp, max_flat=max_flat)
+              max_less_sharp=max_less_sharp, max_flat=max_flat,
+              corner_k=corner_k, flat_k=flat_k)
     if corner_meta.device.type == "cpu":
         return select_walk_plain(corner_meta, flat_meta, picked0, **kw)
     out = _launch(corner_meta, flat_meta, picked0, **kw)
@@ -125,21 +136,21 @@ select_walk.launches = 0
 
 
 def _launch(corner_meta, flat_meta, picked0, *, n_sub, subw, W, max_sharp,
-            max_less_sharp, max_flat):
+            max_less_sharp, max_flat, corner_k=0, flat_k=0):
     B, R, K = corner_meta.shape
     wb = W // 32
     if K != n_sub * subw or W % 32 or W > 2048:
         raise ValueError(f"select_walk: bad shape K={K} W={W}")
     _build.require(corner_meta, torch.int32, (B, R, K), "corner_meta")
     _build.require(flat_meta, torch.int32, (B, R, K), "flat_meta")
-    p0 = picked0.to(torch.int32).contiguous()   # uint32 bit patterns
-    _build.require(p0, torch.int32, (B, R, wb), "picked0")
-    out = torch.empty((B, R, 4 * wb), dtype=torch.int32,
+    _build.require(picked0, torch.int64, (B, R, wb), "picked0")
+    out = torch.empty((B, R, 4 * wb), dtype=torch.int64,
                       device=corner_meta.device)
     launch = _build.entry("select_walk", _ARGTYPES)
-    err = launch(*(_build.ptr(t) for t in (corner_meta, flat_meta, p0, out)),
-                 B, R, n_sub, subw, wb, max_sharp, max_less_sharp, max_flat,
-                 _build.stream_of(out))
+    err = launch(*(_build.ptr(t) for t in (corner_meta, flat_meta, picked0,
+                                           out)),
+                 B, R, n_sub, subw, wb, walk_limit(corner_k, subw),
+                 walk_limit(flat_k, subw), max_sharp, max_less_sharp,
+                 max_flat, _build.stream_of(out))
     _build.check(err, "select_walk")
-    words = out.to(torch.int64) & 0xFFFFFFFF
-    return tuple(words[..., f * wb:(f + 1) * wb] for f in range(4))
+    return tuple(out[..., f * wb:(f + 1) * wb] for f in range(4))

@@ -6,8 +6,10 @@ order (near-tie curvature order drives the greedy pick).  The greedy
 per-subregion selection runs as the walk of ops/cuda/select_walk: the
 JAX default select_ring is a batched lax.while_loop, which eager PyTorch
 cannot express without thousands of tiny launches per frame, while the
-walk is exactly the sequential per-ring form a GPU thread runs well.
-Its labels are identical to select_ring (tests/test_select_walk.py).
+walk runs every ring of every frame in one launch.  Its labels are
+identical to select_ring (tests/test_select_walk.py), with the
+corner_scan_k / flat_scan_k depths too, and to select_rings_argmax
+(tests/test_select_argmax.py), so select_argmax=True runs the same walk.
 """
 
 from __future__ import annotations
@@ -196,6 +198,7 @@ def select_rings(curv, gap_sq, pre_picked, n, cfg: LoamConfig):
         W=W, max_sharp=cfg.max_sharp_per_subregion,
         max_less_sharp=cfg.max_less_sharp_per_subregion,
         max_flat=cfg.max_flat_per_subregion,
+        corner_k=cfg.corner_scan_k, flat_k=cfg.flat_scan_k,
     )
     sharp = SW.unpack_bits(s_bits[0], W)
     less = SW.unpack_bits(l_bits[0], W)
@@ -220,15 +223,14 @@ def _compact(xyz, rel, mask, cap):
 
 
 def check_selection_config(cfg: LoamConfig) -> None:
-    """The port runs one selection formulation: the full walk."""
-    if cfg.select_argmax:
-        raise NotImplementedError(
-            "select_argmax is not ported yet (ROADMAP.md, queue 1 item 9: "
-            "features.select_rings_argmax)")
-    if cfg.corner_scan_k > 0 or cfg.flat_scan_k > 0:
-        raise NotImplementedError(
-            "corner_scan_k/flat_scan_k walk truncation is not ported yet "
-            "(ROADMAP.md, queue 1 item 9: the remaining alternatives)")
+    """The port runs one selection formulation: the walk, whose labels
+    select_rings_argmax shares, so select_argmax=True runs it too."""
+    if cfg.select_argmax and (cfg.corner_scan_k != 0
+                              or cfg.flat_scan_k != 0):
+        # the JAX package asserts the same (features.extract_features)
+        raise ValueError("select_argmax=True is incompatible with "
+                         "corner_scan_k/flat_scan_k truncation (walk-only "
+                         "knobs)")
     if cfg.ring_width > 2048 or cfg.ring_width % 32:
         raise ValueError("the selection walk packs ring indices in 11 bits "
                          "and bit-fields in 32-bit words: ring_width must "

@@ -25,7 +25,8 @@ from loam_tpu_torch.ops.cuda import odom_corr as OC
 from loam_tpu_torch.ops.cuda import select_walk as SW
 
 from torch_parity import (kselect_argsort, kselect_lattice_case,
-                          windowed_knn_case, windowed_knn_scalar)
+                          walk_kwargs, walk_meta_case, windowed_knn_case,
+                          windowed_knn_scalar)
 
 pytestmark = pytest.mark.gpu
 
@@ -262,39 +263,28 @@ def test_odom_corr_kernel_ties_and_ring_orders(cuda, case, surf, truncate):
         assert (out[0][0] >= 0).sum() > Q // 4
 
 
-def test_select_walk_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(3)
-    cfg = dataclasses.replace(LoamConfig(), ring_width=512)
-    B, R, W = 2, 16, cfg.ring_width
-    n_sub, subw = cfg.n_subregions, W // cfg.n_subregions + 8
-    K = n_sub * subw
-    order = np.argsort(rng.uniform(size=(B, R, n_sub, subw)), axis=-1)
-    base = (np.arange(n_sub) * (W // n_sub))[:, None]
-    ind = np.clip(base + order, 0, W - 1).reshape(B, R, K)
-    up = rng.integers(0, 6, (B, R, K))
-    dn = rng.integers(0, 6, (B, R, K))
-    up, dn = np.minimum(up, W - 1 - ind), np.minimum(dn, ind)
-
-    def meta(p_valid, p_qual):
-        valid = rng.uniform(size=(B, R, K)) < p_valid
-        qual = rng.uniform(size=(B, R, K)) < p_qual
-        return SW.pack_walk_meta(*(torch.tensor(a, device=cuda)
-                                   for a in (ind, valid, qual, up, dn)))
-
-    cm, fm = meta(0.995, 0.9), meta(0.995, 0.97)
-    p0 = SW.pack_bits(torch.tensor(rng.uniform(size=(B, R, W)) < 0.05,
-                                   device=cuda))
-    kw = dict(n_sub=n_sub, subw=subw, W=W,
-              max_sharp=cfg.max_sharp_per_subregion,
-              max_less_sharp=cfg.max_less_sharp_per_subregion,
-              max_flat=cfg.max_flat_per_subregion)
+@pytest.mark.parametrize("corner_k,flat_k",
+                         [(0, 0), (7, 7), (33, 33), (3, 0), (0, 7)])
+@pytest.mark.parametrize("W", [512, 2048])
+@pytest.mark.parametrize("B,R", [(1, 1), (1, 16), (1, 208), (8, 34)])
+def test_select_walk_kernel_matches_plain(cuda, B, R, W, corner_k, flat_k):
+    """The warp-a-ring walk equals the plain version on every output, on
+    the constructed meta of torch_parity.walk_meta_case (quota overflow,
+    picked runs past the two staged chunks, stop candidates first, rings
+    under 12 points, reaches across words and subregions, index W-1, bit
+    31), the corner and flat walks cut at corner_k and flat_k candidates
+    (0: the whole subregion)."""
+    cm, fm, p0, _ = walk_meta_case(B, R, W, seed=R + W + corner_k + flat_k)
+    kw = walk_kwargs(LoamConfig(), W, corner_k, flat_k)
+    cm, fm = (torch.tensor(a, device=cuda) for a in (cm, fm))
+    p0 = SW.pack_bits(torch.tensor(p0, device=cuda))
     before = SW.select_walk.launches
     out = SW.select_walk(cm, fm, p0, **kw)
     assert SW.select_walk.launches == before + 1
     plain = SW.select_walk_plain(cm, fm, p0, **kw)
     torch.cuda.synchronize()
     for a, b in zip(out, plain):
-        assert torch.equal(a, b)
+        assert a.dtype == b.dtype and torch.equal(a, b)
     assert int(out[0].count_nonzero()) > 0 and int(out[2].count_nonzero()) > 0
 
 

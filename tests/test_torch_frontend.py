@@ -254,8 +254,13 @@ def test_extract_features_matches(sweeps):
 @pytest.mark.parametrize("field,value", [("select_argmax", True),
                                          ("corner_scan_k", 10)])
 def test_unported_selection_configs_raise(field, value):
+    """Both selection knobs are ported: each runs alone, and the two
+    together raise the ValueError that the JAX package asserts
+    (loam_tpu/ops/features.py:665-668), before any work is done."""
     cfg = to_port_cfg(dataclasses.replace(parity_cfg(), **{field: value}))
     s = Sweep(torch.zeros(1, 16, 512, 3), torch.zeros(1, 16, 512),
               torch.zeros(1, 16, 512, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TFT.extract_features(s, cfg)
+    assert TFT.extract_features(s, cfg).sharp.count().item() == 0
+    both = dataclasses.replace(cfg, select_argmax=True, corner_scan_k=10)
+    with pytest.raises(ValueError, match="incompatible"):
+        TFT.extract_features(s, both)

@@ -31,7 +31,8 @@ from loam_tpu_torch.ops.cuda import knn_topk as TKN
 from loam_tpu_torch.ops.cuda import odom_corr as TOC
 from loam_tpu_torch.ops.cuda import select_walk as TSW
 
-from torch_parity import (to_port_cfg, windowed_knn_case,
+from torch_parity import (WALK_KINDS, serial_walk, to_port_cfg,
+                          walk_kwargs, walk_meta_case, windowed_knn_case,
                           windowed_knn_scalar)
 
 torch.set_num_threads(1)
@@ -234,6 +235,102 @@ def test_select_walk_plain_matches_pallas_and_select_ring(W, seed):
         np.testing.assert_array_equal(lab_t.numpy(), np.asarray(ref_lab))
         np.testing.assert_array_equal(pick_t.numpy(), np.asarray(ref_pick))
     assert (lab_t.numpy() == 2).sum() > 0 and (lab_t.numpy() == -1).sum() > 0
+
+
+@pytest.mark.parametrize("corner_k,flat_k", [(3, 3), (40, 40), (3, 40),
+                                              (40, 0)])
+def test_select_rings_scan_depth_matches_select_ring(corner_k, flat_k):
+    """corner_scan_k / flat_scan_k cut the port's walk where they cut the
+    JAX default select_ring: labels and picked masks bit for bit."""
+    W = 512
+    cfg = dataclasses.replace(LoamConfig(), ring_width=W,
+                              corner_scan_k=corner_k, flat_scan_k=flat_k)
+    curv, gap, pre, n = _ring_case(8, W, 5)
+    lab_t, pick_t = TFT.select_rings(_t(curv), _t(gap), _t(pre), _t(n),
+                                     to_port_cfg(cfg))
+    lab_x, pick_x = jax.vmap(
+        lambda c, g, p, nn: JFT.select_ring(jnp.zeros((W, 3)), c, g, p, nn,
+                                            cfg)
+    )(jnp.asarray(curv), jnp.asarray(gap), jnp.asarray(pre), jnp.asarray(n))
+    np.testing.assert_array_equal(lab_t.numpy(), np.asarray(lab_x))
+    np.testing.assert_array_equal(pick_t.numpy(), np.asarray(pick_x))
+    full, _ = TFT.select_rings(_t(curv), _t(gap), _t(pre), _t(n),
+                               to_port_cfg(dataclasses.replace(
+                                   cfg, corner_scan_k=0, flat_scan_k=0)))
+    if 3 in (corner_k, flat_k):      # a depth of 3 cuts walks here
+        assert (lab_t.numpy() != full.numpy()).any()
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_select_argmax_labels_match_select_rings_argmax(ties):
+    """select_argmax=True runs the walk: its labels and picked masks equal
+    the JAX package's fixed-trip-count select_rings_argmax, on random
+    rings and on curvature quantised into exact ties around the
+    threshold (tests/test_select_argmax.py's cases)."""
+    W = 256 if ties else 512
+    cfg = dataclasses.replace(LoamConfig(), ring_width=W, select_argmax=True)
+    curv, gap, pre, n = _ring_case(8, W, 17)
+    if ties:
+        rng = np.random.default_rng(23)
+        curv = (rng.integers(0, 6, size=curv.shape) * 0.06).astype(
+            np.float32)
+        n = np.full_like(n, W)
+    lab_t, pick_t = TFT.select_rings(_t(curv), _t(gap), _t(pre), _t(n),
+                                     to_port_cfg(cfg))
+    lab_a, pick_a = jax.jit(
+        lambda c, g, p, nn: JFT.select_rings_argmax(c, g, p, nn, cfg)
+    )(jnp.asarray(curv), jnp.asarray(gap), jnp.asarray(pre), jnp.asarray(n))
+    np.testing.assert_array_equal(lab_t.numpy(), np.asarray(lab_a))
+    np.testing.assert_array_equal(pick_t.numpy(), np.asarray(pick_a))
+    assert (lab_t.numpy() == 2).sum() > 0 and (lab_t.numpy() == -1).sum() > 0
+
+
+@pytest.mark.parametrize("W", [512, 2048])
+@pytest.mark.parametrize("depth", [1, 7, 32, 33, 0])
+def test_select_walk_plain_matches_serial_walk(W, depth):
+    """The plain walk equals a one-candidate-at-a-time NumPy walk on
+    constructed meta (torch_parity.walk_meta_case): quota overflow in
+    every subregion, long picked runs, stop candidates first, rings under
+    12 points, reaches across words and subregions, index W-1, bit 31;
+    at depths 1, 7, 32, 33 and the whole subregion."""
+    B, R = 2, 6
+    cm, fm, p0, kinds = walk_meta_case(B, R, W, seed=W + depth)
+    kw = walk_kwargs(to_port_cfg(LoamConfig()), W, depth, depth)
+    got = TSW.select_walk_plain(_t(cm), _t(fm), TSW.pack_bits(_t(p0)), **kw)
+    want, counts = serial_walk(cm.reshape(B * R, -1), fm.reshape(B * R, -1),
+                               p0.reshape(B * R, W), **kw)
+    for g, w in zip(got, want):
+        assert g.shape == (B, R, W // 32)
+        np.testing.assert_array_equal(
+            TSW.unpack_bits(g, W).numpy().reshape(B * R, W), w)
+    kind = np.array(WALK_KINDS)[kinds.reshape(-1)]
+    n_walks = 2 * kw["n_sub"]
+    # a short ring and stop-first walks end at their first candidates
+    assert (counts["walked"][kind == "short_ring"] == n_walks).all()
+    assert (counts["walked"][kind == "stop_first"]
+            == min(depth or 2, 2) * kw["n_sub"] + kw["n_sub"]).all()
+    if depth == 0:
+        # every subregion: 20 corners labelled (the 21st overflows), 4 flats
+        assert (counts["picks"][kind == "overflow"] == kw["n_sub"] * 24).all()
+        # picked runs walk past the two chunks the kernel stages
+        assert (counts["walked"][kind == "picked_runs"] > n_walks * 64).all()
+    assert want[0][kind == "edges"][:, W - 1].all()   # index W-1, bit 31
+
+
+@pytest.mark.parametrize("corner_k,flat_k", [(3, 0), (0, 7), (40, 2)])
+def test_select_walk_plain_split_depths_match_serial_walk(corner_k, flat_k):
+    """Each walk keeps its own depth: the plain walk equals the NumPy walk
+    when the corner and flat depths differ."""
+    B, R, W = 2, 6, 512
+    cm, fm, p0, _ = walk_meta_case(B, R, W, seed=corner_k + 10 * flat_k)
+    kw = walk_kwargs(to_port_cfg(LoamConfig()), W, corner_k, flat_k)
+    got = TSW.select_walk_plain(_t(cm), _t(fm), TSW.pack_bits(_t(p0)), **kw)
+    want, _ = serial_walk(cm.reshape(B * R, -1), fm.reshape(B * R, -1),
+                          p0.reshape(B * R, W), **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(
+            TSW.unpack_bits(g, W).numpy().reshape(B * R, W), w)
+    assert want[2].any()
 
 
 def test_walk_bits_roundtrip():

@@ -91,7 +91,6 @@ def test_metrics_match():
 
 @pytest.mark.parametrize("bad", [
     dict(imu=True), dict(cfg=dict(emit_registered=True)),
-    dict(cfg=dict(select_argmax=True)),
 ])
 def test_unported_paths_raise(bad):
     """Configurations outside the ported slice raise, naming their

@@ -11,6 +11,7 @@ import torch
 
 from loam_tpu_torch.config import LoamConfig as PortConfig
 from loam_tpu_torch.io import synth
+from loam_tpu_torch.ops.cuda import select_walk as SW
 
 
 def tree_to_numpy(obj):
@@ -177,3 +178,131 @@ def kselect_argsort(cand, valid, q, k):
     order = np.argsort(d, axis=1, kind="stable")[:, :k]
     return (np.take_along_axis(cand, order[..., None], 1),
             np.take_along_axis(d, order, 1))
+
+
+# ---- the selection walk: constructed meta and a serial reference
+
+WALK_KINDS = ("overflow", "picked_runs", "stop_first", "short_ring",
+              "edges", "random")
+
+
+def walk_kwargs(cfg, W: int, corner_k: int = 0, flat_k: int = 0) -> dict:
+    """Keyword arguments of ops/cuda/select_walk for rings of width W, the
+    corner and flat walks cut at corner_k and flat_k candidates (0: the
+    whole subregion)."""
+    return dict(n_sub=cfg.n_subregions, subw=W // cfg.n_subregions + 8, W=W,
+                max_sharp=cfg.max_sharp_per_subregion,
+                max_less_sharp=cfg.max_less_sharp_per_subregion,
+                max_flat=cfg.max_flat_per_subregion, corner_k=corner_k,
+                flat_k=flat_k)
+
+
+def walk_meta_case(B: int, R: int, W: int, n_sub: int = 6, seed: int = 0):
+    """Constructed walk inputs for B x R rings of width W in the layout of
+    features.walk_meta (subregion j walks indices j*(W/n_sub) + [0, subw),
+    those past W-1 clamped to it and not in-span, reaches clipped at the
+    ring ends), ring g = b*R + r of kind WALK_KINDS[g % 6]:
+      overflow     every candidate qualifies and suppresses only itself:
+                   each corner walk overflows at its 21st, each flat walk
+                   stops at its 4th pick;
+      picked_runs  most of each subregion pre-picked and walked in index
+                   order: 80+ picked candidates before the first pick;
+      stop_first   each walk's first (flat: second) candidate stops it;
+      short_ring   no in-span candidate (a ring under 12 points);
+      edges        reaches of 5 (across words and into the next
+                   subregion), index W-1 first in the last subregion's
+                   walks, bit-31 candidates next, bit 31 of every other
+                   word pre-picked;
+      random       random stops, reaches and pre-picks.
+    Returns NumPy corner_meta, flat_meta (B, R, n_sub*subw) int32, picked0
+    (B, R, W) bool and the kind index of each ring (B, R)."""
+    rng = np.random.default_rng(seed)
+    span, subw = W // n_sub, W // n_sub + 8
+    N = B * R
+    metas = np.zeros((2, N, n_sub, subw), np.int32)
+    picked0 = np.zeros((N, W), bool)
+    kinds = np.arange(N) % len(WALK_KINDS)
+    for g in range(N):
+        kind = WALK_KINDS[kinds[g]]
+        if kind in ("stop_first", "short_ring", "random"):
+            picked0[g] = rng.uniform(size=W) < 0.05
+        elif kind == "edges":
+            picked0[g, 31::64] = True
+        for j in range(n_sub):
+            idx = j * span + np.arange(subw)
+            if kind == "picked_runs":
+                picked0[g, j * span:j * span + min(subw - 12, 200)] = True
+            for s in range(2):                      # 0 corner, 1 flat
+                live = idx <= W - 1
+                order = rng.permutation(subw)
+                if kind == "picked_runs":
+                    order = np.arange(subw)
+                elif kind == "edges":
+                    key = np.where(idx % 32 == 31, 0, 2) - (idx == W - 1)
+                    order = np.argsort(key, kind="stable")
+                order = np.concatenate([order[live[order]],
+                                        order[~live[order]]])
+                ind = np.minimum(idx[order], W - 1)
+                valid = live[order] & (kind != "short_ring")
+                qual = np.ones(subw, bool)
+                if kind == "stop_first":
+                    (qual if s == 0 else valid)[s] = False
+                elif kind == "random":
+                    stop = rng.integers(0, subw + 1)
+                    (qual if stop % 2 else valid)[stop:] = False
+                reach = 5 if kind == "edges" else 0 if kind == "overflow" \
+                    else None
+                up, dn = (np.full(subw, reach) if reach is not None
+                          else rng.integers(0, 6, subw) for _ in range(2))
+                up, dn = np.minimum(up, W - 1 - ind), np.minimum(dn, ind)
+                metas[s, g, j] = SW.pack_walk_meta(*(
+                    torch.tensor(a) for a in (ind, valid, qual, up, dn)
+                )).numpy()
+    cm, fm = (m.reshape(B, R, n_sub * subw) for m in metas)
+    return cm, fm, picked0.reshape(B, R, W), kinds.reshape(B, R)
+
+
+def serial_walk(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
+                max_sharp, max_less_sharp, max_flat, corner_k=0, flat_k=0):
+    """The contract of ops/cuda/select_walk one ring and one candidate at a
+    time (src/scanRegistration.cpp:477-541).  corner_meta/flat_meta
+    (N, n_sub*subw) int32, picked0 (N, W) bool.  Returns the (sharp,
+    less_sharp, flat, picked) masks, each (N, W) bool, and per ring (N,)
+    int64 counts: `walked` candidates (meta words read), labelled `picks`,
+    and `rounds` of the one-warp-a-ring kernel (32-candidate chunks plus
+    picks)."""
+    N = corner_meta.shape[0]
+    fields = np.zeros((4, N, W), bool)
+    fields[3] = picked0
+    counts = {k: np.zeros(N, np.int64) for k in ("walked", "picks",
+                                                  "rounds")}
+    for i in range(N):
+        sharp, less, flat, picked = fields[:, i]
+        for j in range(n_sub):
+            for corner in (True, False):
+                meta = (corner_meta if corner else flat_meta)[
+                    i, j * subw:(j + 1) * subw].tolist()
+                depth = corner_k if corner else flat_k
+                cnt = steps = picks = 0
+                for m in meta[:subw if depth <= 0 else min(depth, subw)]:
+                    steps += 1
+                    ind, up, dn = m & 0x7FF, (m >> 11) & 7, (m >> 14) & 7
+                    if not ((m >> 17) & 1 and (m >> 18) & 1):
+                        break                     # processed, then stop
+                    if picked[ind]:
+                        continue
+                    cnt += 1
+                    if corner and cnt > max_less_sharp:
+                        break                     # counted, not labelled
+                    picks += 1
+                    if corner:
+                        (sharp if cnt <= max_sharp else less)[ind] = True
+                    else:
+                        flat[ind] = True
+                        if cnt >= max_flat:
+                            break                 # before its suppression
+                    picked[max(ind - dn, 0):ind + up + 1] = True
+                counts["walked"][i] += steps
+                counts["picks"][i] += picks
+                counts["rounds"][i] += -(-steps // 32) + picks
+    return tuple(fields), counts
