@@ -28,7 +28,16 @@ Phases, each of which raises (non-zero exit) on failure:
      kernel of that replay's path with no launch fails the run.  Each
      integrated trajectory must be finite, within 5 cm ATE of the NumPy
      golden oracle (tests/golden) on the same sweeps, and have the
-     oracle's mapping cadence.
+     oracle's mapping cadence;
+  5. replay the golden IMU scenario of tests/test_golden_parity_imu.py
+     whole (40 sweeps of 600 azimuths along the oscillating trajectory,
+     a 200 Hz IMU stream cut into per-frame windows, the cell-bucket
+     map) with its IMU streams, and hold it to that test's gates against
+     tests/golden/pipeline.run_pipeline_imu: odometry ATE < 2 cm,
+     integrated ATE < 5 cm, pitch/roll within 0.3 deg, ATE against the
+     ground truth < 0.30 m, and a no-IMU rerun that moves the integrated
+     trajectory by more than 1 mm; it must launch select_walk, knn_topk,
+     odom_corr and knn_select, and never knn_topk_dyn.
 The last three lines are the kernels JSON, the card's name and power
 limit, and {"ok": true, "device": {...}}.
 """
@@ -89,10 +98,50 @@ REPLAYS = {
 }
 
 
+# the golden IMU scenario (tests/test_golden_parity_imu.py:30-44)
+IMU_FRAMES = 40
+IMU_AZIMUTH = 600
+IMU_SEED = 11
+IMU_RATE = 200.0     # Hz
+IMU_T0 = 0.06        # first sweep stamp (the stream starts at t=0)
+IMU_LEAD = 0.05      # window lead before the sweep
+IMU_HORIZON = 0.13   # samples that have arrived when the sweep is handled
+IMU_CAP = 64
+IMU_PATH = (("knn_topk", "odom_corr", "select_walk", "knn_select"),
+            ("knn_topk_dyn",))
+# its gates (tests/test_golden_parity_imu.py:123-177)
+IMU_ODOM_GATE = 0.02         # m, odometry ATE vs the oracle
+IMU_ATTITUDE_GATE = 0.3      # deg, largest pitch/roll gap
+IMU_GT_GATE = 0.30           # m, integrated ATE vs the ground truth
+IMU_MOVES = 1e-3             # m, the IMU must move the trajectory
+
+
 def replay_config(name: str):
     from loam_tpu_torch.config import LoamConfig
 
     return dataclasses.replace(LoamConfig(), **REPLAYS[name][0])
+
+
+def imu_config():
+    """The golden IMU configuration: rings of 1024, the cell-bucket map."""
+    from loam_tpu_torch.config import LoamConfig
+
+    return dataclasses.replace(LoamConfig(), ring_width=1024,
+                               corner_table_size=1 << 15,
+                               surf_table_size=1 << 17, map_exact_knn=False)
+
+
+def imu_inputs(dev):
+    """The golden IMU scenario on `dev`: (raw, mask, ImuStream windows,
+    sweep stamps) as tensors, and the NumPy sequence of imu_sequence."""
+    from loam_tpu_torch.imu import ImuStream
+
+    seq = imu_sequence()
+    raw, msk, imu_t, rpy, acc, t_scans, _ = seq
+    stream = ImuStream(*(torch.tensor(a, device=dev)
+                         for a in frame_windows(imu_t, rpy, acc, t_scans)))
+    return (torch.tensor(raw, device=dev), torch.tensor(msk, device=dev),
+            stream, torch.tensor(t_scans.astype(np.float32), device=dev)), seq
 
 
 def card_line() -> str:
@@ -188,7 +237,7 @@ def _library_knn(q, ref, k):
     return torch.cdist(q, ref).topk(k, dim=-1, largest=False)
 
 
-def kernel_phase(dev, raw, msk, cfg):
+def kernel_phase(dev, raw, msk, cfg, imu):
     """Each kernel vs its plain version at the replays' shapes.  Returns
     one row a kernel (its largest shape), with the other shapes' rows
     under "other_shapes"."""
@@ -352,7 +401,7 @@ def kernel_phase(dev, raw, msk, cfg):
     add("odom_corr", "odom_corr", "loam_tpu_torch/csrc/odom_corr.cu",
         "loam_tpu/ops/pallas/odom_corr.py:65", shapes)
 
-    rows.append(select_walk_row(dev, raw, msk, cfg))
+    rows.append(select_walk_row(dev, raw, msk, cfg, imu))
 
     # ---- kselect, every output compared exactly: lattice candidates
     # (exact ties in every row), the hybrid re-rank (C=8), the cell
@@ -402,32 +451,45 @@ def kernel_phase(dev, raw, msk, cfg):
     return rows
 
 
-def select_walk_row(dev, raw, msk, cfg):
+def select_walk_row(dev, raw, msk, cfg, imu):
     """select_walk at one frame's rings (online use at 10 Hz), bench.py's
-    batch (B=8 scenarios x 17 frames, filled by tiling the replay's rings)
-    and every ring of the replay (the row's own shape); every output
-    compared exactly.  The serial NumPy walk of tests/torch_parity counts
-    what these inputs need: candidates walked (meta words read), picks,
-    and the kernel's rounds (32-candidate chunks plus picks)."""
-    from loam_tpu_torch import frontend
+    batch (B=8 scenarios x 17 frames, filled by tiling the replay's rings),
+    every ring of the IMU replay (imu_inputs: deskewed, rings of 1024) and
+    every ring of the replay (the row's own shape); every output compared
+    exactly.  The serial NumPy walk of tests/torch_parity counts what
+    these inputs need: candidates walked (meta words read), picks, and
+    the kernel's rounds (32-candidate chunks plus picks)."""
+    from loam_tpu_torch import frontend, pipeline
     from loam_tpu_torch.ops import features as FT
     from loam_tpu_torch.ops.cuda import select_walk as SW
     from torch_parity import serial_walk, walk_kwargs
 
-    sweep = frontend.ingest_sweep(torch.tensor(raw, device=dev),
-                                  torch.tensor(msk, device=dev), cfg)
-    curv, gap, pre, counts = FT.selection_inputs(sweep, cfg)
-    W = cfg.ring_width
-    cm_all, fm_all = FT.walk_meta(curv.reshape(-1, W), gap.reshape(-1, W),
-                                  counts.reshape(-1), cfg)
-    pre = pre.reshape(-1, W)
-    kw = walk_kwargs(cfg, W)
-    _, need = serial_walk(cm_all.cpu().numpy(), fm_all.cpu().numpy(),
-                          pre.cpu().numpy(), **kw)
-    n_rings = cm_all.shape[0]
+    def walk_inputs(sweep, cfg):
+        curv, gap, pre, counts = FT.selection_inputs(sweep, cfg)
+        W = cfg.ring_width
+        cm, fm = FT.walk_meta(curv.reshape(-1, W), gap.reshape(-1, W),
+                              counts.reshape(-1), cfg)
+        pre = pre.reshape(-1, W)
+        kw = walk_kwargs(cfg, W)
+        _, need = serial_walk(cm.cpu().numpy(), fm.cpu().numpy(),
+                              pre.cpu().numpy(), **kw)
+        return cm, fm, pre, kw, need
+
+    replay_rings = walk_inputs(frontend.ingest_sweep(
+        torch.tensor(raw, device=dev), torch.tensor(msk, device=dev), cfg),
+        cfg)
+    (iraw, imsk, stream, t_scans), _ = imu
+    imu_rings = walk_inputs(pipeline.ingest_frames(
+        iraw, imsk, imu_config(), stream, t_scans)[0], imu_config())
+    n_rings, n_imu = replay_rings[0].shape[0], imu_rings[0].shape[0]
     shapes = []
-    for B, R in ((1, cfg.n_scans), (8, 17 * cfg.n_scans), (1, n_rings)):
-        idx = torch.arange(B * R, device=dev) % n_rings
+    for rings, B, R, note in ((replay_rings, 1, cfg.n_scans, ""),
+                              (replay_rings, 8, 17 * cfg.n_scans, ""),
+                              (imu_rings, 1, n_imu, ",imu"),
+                              (replay_rings, 1, n_rings, "")):
+        cm_all, fm_all, pre, kw, need = rings
+        W = kw["W"]
+        idx = torch.arange(B * R, device=dev) % cm_all.shape[0]
         cm = cm_all[idx].reshape(B, R, -1).contiguous()
         fm = fm_all[idx].reshape(B, R, -1).contiguous()
         p0 = SW.pack_bits(pre[idx]).reshape(B, R, -1)
@@ -438,7 +500,7 @@ def select_walk_row(dev, raw, msk, cfg):
         shapes.append(dict(
             shape=f"B={B},R={R},W={W},walked={n['walked']},"
                   f"picks={n['picks']},rounds={n['rounds']},"
-                  f"max_rounds={max_rounds}",
+                  f"max_rounds={max_rounds}" + note,
             max_abs_err=_compare("select_walk", run_k(), run_p()),
             ms=time_ms(run_k), device_ms=device_ms(run_k),
             plain_ms=time_ms(run_p, reps=5), library_ms=None,
@@ -457,20 +519,17 @@ def select_walk_row(dev, raw, msk, cfg):
                 other_shapes=shapes[:-1])
 
 
-def replay(name, raw_t, msk_t):
-    """One replay on the card after a 3-frame warm-up; returns (outputs,
-    launch counts, seconds).  Raises when a kernel of this replay's path
-    was not launched, or one outside it was."""
-    from loam_tpu_torch import pipeline
+def counted_replay(name, required, forbidden, warm_up, run):
+    """warm_up() (library handles, allocator; uncounted), then run() with
+    every launch count zeroed just before it and read just after it.
+    Returns (outputs, launch counts, seconds).  Raises when a kernel of
+    this replay's path was not launched, or one outside it was."""
     from loam_tpu_torch.ops.cuda import knn_topk as KN
     from loam_tpu_torch.ops.cuda import kselect as KS
     from loam_tpu_torch.ops.cuda import odom_corr as OC
     from loam_tpu_torch.ops.cuda import select_walk as SW
 
-    cfg = replay_config(name)
-    _, required, forbidden = REPLAYS[name]
-    # warm-up (library handles, allocator) on the first frames, uncounted
-    pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg)
+    warm_up()
     torch.cuda.synchronize()
     wrappers = {"knn_topk": KN.knn_topk, "knn_topk_dyn": KN.knn_topk_dyn,
                 "odom_corr": OC.odom_corr, "select_walk": SW.select_walk,
@@ -478,7 +537,7 @@ def replay(name, raw_t, msk_t):
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    outs = pipeline.replay_sweeps(raw_t, msk_t, cfg)
+    outs = run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {n: fn.launches for n, fn in wrappers.items()}
@@ -489,6 +548,121 @@ def replay(name, raw_t, msk_t):
     if stray:
         raise AssertionError(f"{name} replay launched {stray}")
     return outs, counts, seconds
+
+
+def replay(name, raw_t, msk_t):
+    """One replay on the card after a 3-frame warm-up."""
+    from loam_tpu_torch import pipeline
+
+    cfg = replay_config(name)
+    _, required, forbidden = REPLAYS[name]
+    return counted_replay(
+        name, required, forbidden,
+        lambda: pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg),
+        lambda: pipeline.replay_sweeps(raw_t, msk_t, cfg))
+
+
+def imu_sequence():
+    """The raw sweeps of the golden IMU scenario and the noise-free IMU
+    stream of its trajectory: orientation straight from the trajectory,
+    body-frame coordinate acceleration from central differences (the
+    post-gravity-removal quantities of scanRegistration.cpp:643-647).
+    A NumPy copy of tests/test_golden_parity_imu._make_imu_sequence."""
+    from loam_tpu_torch.io import synth
+
+    world = synth.make_world(seed=IMU_SEED)
+    pose_fn = synth.oscillating_trajectory()
+    t_scans = IMU_T0 + 0.1 * np.arange(IMU_FRAMES)
+    sweeps = [synth.simulate_sweep_traj(world, pose_fn, t0=float(t),
+                                        n_azimuth=IMU_AZIMUTH,
+                                        seed=IMU_SEED + k)
+              for k, t in enumerate(t_scans)]
+    raw = np.stack([s[0] for s in sweeps])
+    msk = np.stack([s[1] for s in sweeps])
+    imu_t = np.arange(0.0, float(t_scans[-1]) + 0.25, 1.0 / IMU_RATE)
+    h = 1e-3
+    rpy = np.zeros((imu_t.shape[0], 3))
+    acc = np.zeros((imu_t.shape[0], 3))
+    for i, t in enumerate(imu_t):
+        p = pose_fn(t)
+        rpy[i] = p[:3]  # (pitch, yaw, roll) == (rx, ry, rz)
+        a_w = (pose_fn(t + h)[3:6] - 2 * p[3:6] + pose_fn(t - h)[3:6]) / h**2
+        R, _ = synth._pose_matrix(p)
+        acc[i] = R.T @ a_w
+    return (raw, msk, imu_t, rpy.astype(np.float32), acc.astype(np.float32),
+            t_scans, pose_fn)
+
+
+def frame_windows(imu_t, rpy, acc, t_scans):
+    """Per-frame windows (t, rpy, acc, mask; leading frame axis) over the
+    samples the oracle is fed, from t_scan - IMU_LEAD to t_scan +
+    IMU_HORIZON, valid samples first.  A NumPy copy of
+    tests/test_golden_parity_imu._frame_windows."""
+    F = t_scans.shape[0]
+    t_w = np.zeros((F, IMU_CAP), np.float32)
+    r_w = np.zeros((F, IMU_CAP, 3), np.float32)
+    a_w = np.zeros((F, IMU_CAP, 3), np.float32)
+    m_w = np.zeros((F, IMU_CAP), bool)
+    for f, t0 in enumerate(t_scans):
+        sel = np.nonzero((imu_t >= t0 - IMU_LEAD)
+                         & (imu_t <= t0 + IMU_HORIZON))[0]
+        n = sel.shape[0]
+        if not 0 < n <= IMU_CAP:
+            raise AssertionError(f"frame {f}: {n} IMU samples in a window "
+                                 f"of {IMU_CAP}")
+        t_w[f, :n] = imu_t[sel]
+        r_w[f, :n] = rpy[sel]
+        a_w[f, :n] = acc[sel]
+        m_w[f, :n] = True
+    return t_w, r_w, a_w, m_w
+
+
+def imu_phase(dev, card: str, imu):
+    """The golden IMU scenario (imu_inputs) replayed whole on the card
+    with its streams, held to tests/test_golden_parity_imu.py's gates
+    against the NumPy oracle.  Returns the replay's launch counts."""
+    from golden.pipeline import run_pipeline_imu
+    from loam_tpu_torch import metrics, pipeline
+
+    (raw_t, msk_t, stream, t_t), seq = imu
+    raw, msk, imu_t, rpy, acc, t_scans, pose_fn = seq
+    oracle = run_pipeline_imu(raw, msk, imu_t, rpy, acc, t_scans,
+                              feed_horizon=IMU_HORIZON)
+    cfg = imu_config()
+    outs, counts, seconds = counted_replay(
+        "imu", *IMU_PATH,
+        lambda: pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg,
+                                       stream.map(lambda a: a[:3]), t_t[:3]),
+        lambda: pipeline.replay_sweeps(raw_t, msk_t, cfg, stream, t_t))
+    odom = outs.pose_odom.cpu().numpy()
+    est = outs.pose_integrated.cpu().numpy()
+    if not (np.isfinite(est).all() and np.isfinite(odom).all()):
+        raise AssertionError("imu replay: non-finite poses")
+    ate_odom = metrics.ate_rmse(odom[:, 3:6], oracle["odom"][:, 3:6])
+    ate_int = metrics.ate_rmse(est[:, 3:6], oracle["integrated"][:, 3:6])
+    attitude = float(np.degrees(np.abs(
+        est[:, [0, 2]] - oracle["integrated"][:, [0, 2]]).max()))
+    gt = np.stack([pose_fn(t + 0.1)[3:6] for t in t_scans])
+    ate_gt = metrics.ate_rmse(est[:, 3:6], gt)
+    plain = pipeline.replay_sweeps(raw_t, msk_t, cfg)
+    moved = float(np.linalg.norm(
+        est[:, 3:6] - plain.pose_integrated.cpu().numpy()[:, 3:6],
+        axis=1).max())
+    print(f"replay imu: {IMU_FRAMES} frames in {seconds:.3f} s = "
+          f"{IMU_FRAMES / seconds:.2f} frames/s; ATE vs golden oracle "
+          f"odometry {100 * ate_odom:.3f} cm, integrated {100 * ate_int:.3f}"
+          f" cm; pitch/roll gap {attitude:.4f} deg; ATE vs ground truth "
+          f"{ate_gt:.4f} m; the no-IMU rerun differs by {moved:.4f} m; "
+          f"launches {counts} [{card}]", flush=True)
+    gates = ((ate_odom < IMU_ODOM_GATE, f"odometry ATE {ate_odom:.4f} m"),
+             (ate_int < ATE_GATE, f"integrated ATE {ate_int:.4f} m"),
+             (attitude < IMU_ATTITUDE_GATE, f"pitch/roll gap {attitude} deg"),
+             (ate_gt < IMU_GT_GATE, f"ground-truth ATE {ate_gt:.4f} m"),
+             (moved > IMU_MOVES, f"the IMU moved the trajectory {moved} m"))
+    failed = [what for ok, what in gates if not ok]
+    if failed:
+        raise AssertionError(f"imu replay failed its gates: {failed}")
+    return counts
 
 
 def print_rows(rows, card: str) -> None:
@@ -526,7 +700,8 @@ def main() -> int:
           f"{Path(_build.CSRC).parent}", flush=True)
 
     raw, msk = make_sweeps()
-    rows = kernel_phase(dev, raw, msk, replay_config("default"))
+    imu = imu_inputs(dev)
+    rows = kernel_phase(dev, raw, msk, replay_config("default"), imu)
     print_rows(rows, card)
 
     from golden.pipeline import run_pipeline
@@ -554,6 +729,8 @@ def main() -> int:
         if not mapped_ok:
             raise AssertionError(
                 f"{name} replay: mapping cadence differs from the oracle")
+
+    launches["imu"] = imu_phase(dev, card, imu)
 
     # the windowed k-NN runs at k=5 in the default replay only and at k=8
     # in the hybrid replay only; every other count sums over the replays

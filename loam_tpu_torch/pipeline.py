@@ -13,11 +13,11 @@ import dataclasses
 
 import torch
 
-from . import (configure_numerics, frontend, mapping, odometry,
-               resolve_device)
+from . import (configure_numerics, frontend, imu as imu_mod, mapping,
+               odometry, resolve_device)
 from .config import LoamConfig
 from .ops.features import check_selection_config, extract_features
-from .types import FeatureClouds
+from .types import FeatureClouds, ImuTrans
 from .utils import rotations
 
 
@@ -59,19 +59,23 @@ def check_config(cfg: LoamConfig) -> None:
 
 
 def pipeline_step(state: PipelineState, feats: FeatureClouds,
-                  cfg: LoamConfig, do_mapping: bool | None = None):
+                  cfg: LoamConfig, do_mapping: bool | None = None,
+                  imu: ImuTrans | None = None, map_rpy=None):
     """One frame: odometry -> (on the cadence) mapping -> integration
     (transformMaintenance, src/transformMaintenance.cpp:147-180).
     do_mapping: None follows the odometry's publish flag; True/False is
-    the caller's static cadence (see mapping_frame)."""
-    odom_state, odom_out = odometry.odometry_step(state.odom, feats, cfg)
+    the caller's static cadence (see mapping_frame).  imu: the sweep's
+    ImuTrans for the odometry priors; map_rpy: (3,) [pitch, roll, ok] at
+    the sweep end for the mapping blend (None: no IMU)."""
+    odom_state, odom_out = odometry.odometry_step(state.odom, feats, cfg,
+                                                  imu=imu)
     if do_mapping is None:
         do_mapping = bool(odom_out.publish_to_mapping)
     map_state = state.map
     if do_mapping:
         map_state, _ = mapping.mapping_step(
             state.map, odom_out.pose, odom_out.corner_last,
-            odom_out.surf_last, cfg)
+            odom_out.surf_last, cfg, imu_rpy=map_rpy)
     integrated = rotations.transform_associate_to_map(
         odom_out.pose, map_state.transform_bef, map_state.transform_aft)
     out = FrameOutput(
@@ -88,33 +92,93 @@ def _stack(outs):
     })
 
 
+def ingest_frames(raw_xyz, raw_mask, cfg: LoamConfig,
+                  imu_streams: imu_mod.ImuStream | None = None,
+                  t_scans=None):
+    """The batched frontend of replay_sweeps before feature extraction:
+    (Sweep, ImuTrans, map_rpy), all with a leading frame axis on the
+    sweeps' device.  With IMU windows (moved there) each is integrated,
+    the points are deskewed, and map_rpy (F, 3) is [pitch, roll, ok] at
+    the sweep end t_scan + scanPeriod (src/laserMapping.cpp:203-225);
+    without, the ImuTrans and map_rpy are None."""
+    if (imu_streams is None) != (t_scans is None):
+        raise ValueError("imu_streams and t_scans go together")
+    if imu_streams is None:
+        return frontend.ingest_sweep(raw_xyz, raw_mask, cfg), None, None
+    device = raw_xyz.device
+    streams = imu_streams.map(lambda a: torch.as_tensor(a).to(device))
+    t_scans = torch.as_tensor(t_scans, dtype=torch.float32).to(device)
+    sweeps, imu_trans = frontend.ingest_sweep_imu(
+        raw_xyz, raw_mask, cfg, streams, imu_mod.integrate(streams, cfg),
+        t_scans)
+    rpy, ok = imu_mod.rpy_at(streams, t_scans + cfg.scan_period)
+    map_rpy = torch.stack([rpy[:, 0], rpy[:, 2], ok.to(torch.float32)], -1)
+    return sweeps, imu_trans, map_rpy
+
+
 def replay_sweeps(raw_xyz, raw_mask, cfg: LoamConfig = LoamConfig(),
-                  imu_streams=None, t_scans=None, *,
-                  state0: PipelineState | None = None,
+                  imu_streams: imu_mod.ImuStream | None = None,
+                  t_scans=None, *, state0: PipelineState | None = None,
                   return_state: bool = False, device=None):
     """Sequential replay of raw sweeps raw_xyz (F, N, 3), raw_mask (F, N),
     NumPy arrays or tensors on any device, moved to `device`: None is
     the CUDA device (a RuntimeError without one), "cpu" asks for the
-    CPU.  A state0 must already live there.  Returns FrameOutput with a
-    leading F axis (and the final PipelineState with return_state=True)."""
-    if imu_streams is not None or t_scans is not None:
-        raise NotImplementedError(
-            "IMU streams are not ported yet (ROADMAP.md, queue 1 item 8)")
+    CPU.  A state0 must already live there.
+
+    imu_streams: an ImuStream with a leading F axis (each frame's window
+    of samples) and t_scans (F,) the sweep start times, moved to the same
+    device.  With them each frame's window is integrated, the frontend
+    deskews every point into the sweep-start IMU frame, the odometry
+    takes the ImuTrans priors and the mapping blends in the IMU pitch and
+    roll at t_scan + scanPeriod (src/laserMapping.cpp:203-225).
+
+    Returns FrameOutput with a leading F axis (and the final
+    PipelineState with return_state=True)."""
     check_config(cfg)
     device = resolve_device(device)
     configure_numerics()
     raw_xyz = torch.as_tensor(raw_xyz, dtype=torch.float32).to(device)
     raw_mask = torch.as_tensor(raw_mask, dtype=torch.bool).to(device)
-    sweeps = frontend.ingest_sweep(raw_xyz, raw_mask, cfg)
+    sweeps, imu_trans, map_rpy = ingest_frames(raw_xyz, raw_mask, cfg,
+                                               imu_streams, t_scans)
     feats = extract_features(sweeps, cfg)
     state = state0 if state0 is not None else \
         PipelineState.create(cfg, device)
     outs = []
     for k in range(raw_xyz.shape[0]):
-        state, out = pipeline_step(state, feats.map(lambda t: t[k]), cfg)
+        state, out = pipeline_step(
+            state, feats.map(lambda t: t[k]), cfg,
+            imu=None if imu_trans is None else imu_trans.map(lambda t: t[k]),
+            map_rpy=None if map_rpy is None else map_rpy[k])
         outs.append(out)
     outs = _stack(outs)
     return (outs, state) if return_state else outs
+
+
+def replay_features(feats: FeatureClouds, cfg: LoamConfig = LoamConfig(),
+                    imu_trans: ImuTrans | None = None,
+                    with_imu: bool = False, device=None) -> FrameOutput:
+    """Replay pre-extracted features (leading F axis) through the
+    recurrent core only, on `device` (None: the CUDA device), the
+    cadence following the publish flag.  With with_imu and an ImuTrans
+    (leading F axis) the odometry takes its priors; the mapping blend
+    needs the IMU at the sweep end, which an ImuTrans does not hold, so
+    it is left out, as in loam_tpu.pipeline.replay_features."""
+    check_config(cfg)
+    device = resolve_device(device)
+    configure_numerics()
+    feats = feats.map(lambda t: t.to(device))
+    use_imu = with_imu and imu_trans is not None
+    if use_imu:
+        imu_trans = imu_trans.map(lambda t: t.to(device))
+    state = PipelineState.create(cfg, device)
+    outs = []
+    for k in range(feats.sharp.mask.shape[0]):
+        state, out = pipeline_step(
+            state, feats.map(lambda t: t[k]), cfg,
+            imu=imu_trans.map(lambda t: t[k]) if use_imu else None)
+        outs.append(out)
+    return _stack(outs)
 
 
 def replay_features_cadenced(feats: FeatureClouds,

@@ -13,7 +13,10 @@ from the same mid-run state:
              "surf_map": {...}, "transform_bef", "transform_aft",
              "nan_skips", "local_map_overflow"}}
 
-Voxel keys are uint32 in NumPy and int64 in the port.
+Voxel keys are uint32 in NumPy and int64 in the port.  The IMU inputs
+cross the same way: an ImuStream as {"t", "rpy", "acc", "mask"} and an
+ImuTrans as {"rpy_start", "rpy_cur", "shift_from_start",
+"velo_from_start"}, any leading axes.
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .imu import ImuStream
 from .map_store import VoxelTable
 from .mapping import MapState
 from .odometry import OdomState
 from .pipeline import PipelineState
-from .types import PointCloud
+from .types import ImuTrans, PointCloud
 
 _KEYS = ("key_hi", "key_lo")
 
@@ -56,6 +60,16 @@ def pipeline_state_from_numpy(tree, device=None) -> PipelineState:
     device = resolve_device(device)
     return PipelineState(odom=_build(OdomState, tree["odom"], device),
                          map=_build(MapState, tree["map"], device))
+
+
+def imu_stream_from_numpy(tree, device=None) -> ImuStream:
+    """device: None is the CUDA device (raises without one)."""
+    return _build(ImuStream, tree, resolve_device(device))
+
+
+def imu_trans_from_numpy(tree, device=None) -> ImuTrans:
+    """device: None is the CUDA device (raises without one)."""
+    return _build(ImuTrans, tree, resolve_device(device))
 
 
 def _to_numpy(obj):

@@ -89,3 +89,22 @@ class FeatureClouds:
     def map(self, fn) -> "FeatureClouds":
         """Apply fn to every tensor (e.g. ``lambda t: t[k]`` picks frame k)."""
         return _map_fields(self, lambda c: c.map(fn))
+
+
+@dataclasses.dataclass
+class ImuTrans:
+    """The per-sweep "imuTrans" summary the odometry consumes
+    (src/scanRegistration.cpp:614-629), each field (..., 3)."""
+
+    rpy_start: torch.Tensor         # pitch, yaw, roll at sweep start
+    rpy_cur: torch.Tensor           # pitch, yaw, roll at sweep end
+    shift_from_start: torch.Tensor  # nonlinear-motion drift
+    velo_from_start: torch.Tensor   # velocity change over the sweep
+
+    @staticmethod
+    def zeros(device=None) -> "ImuTrans":
+        z = torch.zeros(3, dtype=torch.float32, device=device)
+        return ImuTrans(z, z, z, z)
+
+    def map(self, fn) -> "ImuTrans":
+        return _map_fields(self, fn)

@@ -1,12 +1,14 @@
 """Where the time goes in the port's replay on one NVIDIA GPU.
 
-    python3 profile_torch_replay.py [default|hybrid|cells ...]
+    python3 profile_torch_replay.py [default|hybrid|cells|imu ...]
 
 Replays chip_smoke.py's 13 full-density synthetic sweeps through
-loam_tpu_torch in each named mapping mode (chip_smoke.REPLAYS; all
-three when none is named) and prints, after a warm-up replay:
-  * seconds per stage (ingest, feature extraction, odometry, mapping),
-    with a synchronise around each stage;
+loam_tpu_torch in each named mapping mode (chip_smoke.REPLAYS), and for
+"imu" chip_smoke.py's golden IMU scenario (40 sweeps with their IMU
+windows); all four when none is named.  Prints, after a warm-up replay:
+  * seconds per stage (ingest, IMU integration and deskew included;
+    feature extraction, odometry, mapping), with a synchronise around
+    each stage;
   * host reads a mapping frame: scalar reads (bool()/int() of a device
     tensor) and stream or device synchronisations the profiler saw
     inside mapping_step, over the mapping frames that solved;
@@ -44,17 +46,20 @@ def _count(prof, keys) -> int:
     return sum(e.count for e in prof.key_averages() if e.key in keys)
 
 
-def stage_seconds(raw_t, msk_t, cfg, dev, count_reads: bool = False):
-    """Seconds per stage; with count_reads each mapping_step runs under
-    its own profiler and the host reads are returned in place of the
-    times (which the profiler distorts)."""
+def stage_seconds(raw_t, msk_t, cfg, dev, imu=(),
+                  count_reads: bool = False):
+    """Seconds per stage; imu: () or (ImuStream windows, sweep stamps).
+    With count_reads each mapping_step runs under its own profiler and
+    the host reads are returned in place of the times (which the
+    profiler distorts)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from loam_tpu_torch import frontend, mapping, odometry, pipeline
+    from loam_tpu_torch import mapping, odometry, pipeline
     from loam_tpu_torch.ops.features import extract_features
 
     t0 = _now()
-    sweeps = frontend.ingest_sweep(raw_t, msk_t, cfg)
+    sweeps, imu_trans, map_rpy = pipeline.ingest_frames(raw_t, msk_t, cfg,
+                                                        *imu)
     t1 = _now()
     feats = extract_features(sweeps, cfg)
     t2 = _now()
@@ -63,21 +68,23 @@ def stage_seconds(raw_t, msk_t, cfg, dev, count_reads: bool = False):
     for k in range(raw_t.shape[0]):
         a = _now()
         odom_state, out = odometry.odometry_step(
-            state.odom, feats.map(lambda t: t[k]), cfg)
+            state.odom, feats.map(lambda t: t[k]), cfg,
+            imu=imu_trans.map(lambda t: t[k]) if imu else None)
         b = _now()
         odo += b - a
         map_state = state.map
+        step = lambda: mapping.mapping_step(
+            state.map, out.pose, out.corner_last, out.surf_last, cfg,
+            imu_rpy=map_rpy[k] if imu else None)
         if bool(out.publish_to_mapping) and count_reads:
             with profile(activities=[ProfilerActivity.CPU]) as prof:
-                map_state, mout = mapping.mapping_step(
-                    state.map, out.pose, out.corner_last, out.surf_last, cfg)
+                map_state, mout = step()
                 torch.cuda.synchronize()
             if bool(mout.solved):
                 reads.append(_count(prof, (SCALAR_READ,)))
                 syncs.append(_count(prof, SYNC_CALLS) - 1)   # less our own
         elif bool(out.publish_to_mapping):
-            map_state, _ = mapping.mapping_step(
-                state.map, out.pose, out.corner_last, out.surf_last, cfg)
+            map_state, _ = step()
             maps.append(_now() - b)
         state = pipeline.PipelineState(odom=odom_state, map=map_state)
     if count_reads:
@@ -88,24 +95,25 @@ def stage_seconds(raw_t, msk_t, cfg, dev, count_reads: bool = False):
                 total_s=_now() - t0)
 
 
-def profile_mode(name, raw_t, msk_t, dev, card) -> None:
+def profile_mode(name, cfg, raw_t, msk_t, dev, card, imu=()) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from loam_tpu_torch import pipeline
 
-    cfg = CS.replay_config(name)
-    pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg)
-    print(f"== {name} {CS.REPLAYS[name][0]} [{card}]")
+    head = (imu[0].map(lambda t: t[:3]), imu[1][:3]) if imu else ()
+    pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg, *head)
+    changes = CS.REPLAYS[name][0] if name in CS.REPLAYS else "golden IMU"
+    print(f"== {name} {changes} [{card}]")
     print(f"stages [{card}]", json.dumps(stage_seconds(raw_t, msk_t, cfg,
-                                                       dev)), flush=True)
-    print("host reads", json.dumps(stage_seconds(raw_t, msk_t, cfg, dev,
+                                                       dev, imu)), flush=True)
+    print("host reads", json.dumps(stage_seconds(raw_t, msk_t, cfg, dev, imu,
                                                  count_reads=True)),
           flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipeline.replay_sweeps(raw_t, msk_t, cfg)
+        pipeline.replay_sweeps(raw_t, msk_t, cfg, *imu)
         torch.cuda.synchronize()
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
@@ -115,7 +123,7 @@ def profile_mode(name, raw_t, msk_t, dev, card) -> None:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = _now()
-    pipeline.replay_sweeps(raw_t, msk_t, cfg)
+    pipeline.replay_sweeps(raw_t, msk_t, cfg, *imu)
     wall = _now() - t0
     print(f"replay {wall:.4f} s = {raw_t.shape[0] / wall:.3f} frames/s; "
           f"device time {device_s:.4f} s in {sum(r[1] for r in rows)} "
@@ -132,10 +140,11 @@ def profile_mode(name, raw_t, msk_t, dev, card) -> None:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_replay: no CUDA device")
-    modes = sys.argv[1:] or list(CS.REPLAYS)
-    unknown = [m for m in modes if m not in CS.REPLAYS]
+    known = list(CS.REPLAYS) + ["imu"]
+    modes = sys.argv[1:] or known
+    unknown = [m for m in modes if m not in known]
     if unknown:
-        raise SystemExit(f"unknown mode {unknown}; one of {list(CS.REPLAYS)}")
+        raise SystemExit(f"unknown mode {unknown}; one of {known}")
     from loam_tpu_torch import configure_numerics
     from loam_tpu_torch.ops.cuda import _build
 
@@ -147,7 +156,13 @@ def main() -> int:
     raw_t = torch.tensor(raw, device=dev)
     msk_t = torch.tensor(msk, device=dev)
     for name in modes:
-        profile_mode(name, raw_t, msk_t, dev, card)
+        if name == "imu":
+            (iraw, imsk, stream, t_scans), _ = CS.imu_inputs(dev)
+            profile_mode(name, CS.imu_config(), iraw, imsk, dev, card,
+                         (stream, t_scans))
+        else:
+            profile_mode(name, CS.replay_config(name), raw_t, msk_t, dev,
+                         card)
     return 0
 
 

@@ -265,7 +265,7 @@ def test_odom_corr_kernel_ties_and_ring_orders(cuda, case, surf, truncate):
 
 @pytest.mark.parametrize("corner_k,flat_k",
                          [(0, 0), (7, 7), (33, 33), (3, 0), (0, 7)])
-@pytest.mark.parametrize("W", [512, 2048])
+@pytest.mark.parametrize("W", [512, 1024, 2048])
 @pytest.mark.parametrize("B,R", [(1, 1), (1, 16), (1, 208), (8, 34)])
 def test_select_walk_kernel_matches_plain(cuda, B, R, W, corner_k, flat_k):
     """The warp-a-ring walk equals the plain version on every output, on

@@ -90,7 +90,7 @@ def test_metrics_match():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(imu=True), dict(cfg=dict(emit_registered=True)),
+    dict(cfg=dict(emit_registered=True)),
 ])
 def test_unported_paths_raise(bad):
     """Configurations outside the ported slice raise, naming their
@@ -99,28 +99,39 @@ def test_unported_paths_raise(bad):
                                           **bad.get("cfg", {})))
     raw = torch.zeros(1, 64, 3)
     msk = torch.zeros(1, 64, dtype=torch.bool)
-    kw = dict(imu_streams=object(), t_scans=torch.zeros(1)) \
-        if bad.get("imu") else {}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.replay_sweeps(raw, msk, cfg, device="cpu", **kw)
+        TP.replay_sweeps(raw, msk, cfg, device="cpu")
 
 
 def test_port_runs_without_jax():
-    """Importing the port and replaying two frames leaves jax and
-    loam_tpu out of sys.modules: the port keeps its own config and
-    synthetic sweeps (the machine with the card has no JAX)."""
+    """Importing the port and replaying two frames, without and with an
+    IMU stream, leaves jax and loam_tpu out of sys.modules: the port
+    keeps its own config and synthetic sweeps (the machine with the card
+    has no JAX)."""
     fields = dataclasses.asdict(parity_cfg())
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {ROOT!r})
         sys.path.insert(0, {os.path.join(ROOT, "tests")!r})
+        import numpy as np
         import torch
         torch.set_num_threads(1)
         from loam_tpu_torch.config import LoamConfig
         from loam_tpu_torch import pipeline
+        from loam_tpu_torch.imu import ImuStream
+        from loam_tpu_torch.io import synth
         from torch_parity import make_sweeps
+        cfg = LoamConfig(**{fields!r})
         raw, msk, _ = make_sweeps(2, n_azimuth=240)
-        outs = pipeline.replay_sweeps(raw, msk, LoamConfig(**{fields!r}),
+        outs = pipeline.replay_sweeps(raw, msk, cfg, device="cpu")
+        assert torch.isfinite(outs.pose_integrated).all()
+        pose_fn = synth.oscillating_trajectory()
+        t_scans = np.array([0.06, 0.16], np.float32)
+        wins = [synth.simulate_imu_window(pose_fn, t0=float(t))
+                for t in t_scans]
+        stream = ImuStream(*(torch.tensor(np.stack([w[i] for w in wins]))
+                             for i in range(4)))
+        outs = pipeline.replay_sweeps(raw, msk, cfg, stream, t_scans,
                                       device="cpu")
         assert torch.isfinite(outs.pose_integrated).all()
         bad = sorted(m for m in sys.modules
