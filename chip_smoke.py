@@ -37,9 +37,27 @@ Phases, each of which raises (non-zero exit) on failure:
      integrated ATE < 5 cm, pitch/roll within 0.3 deg, ATE against the
      ground truth < 0.30 m, and a no-IMU rerun that moves the integrated
      trajectory by more than 1 mm; it must launch select_walk, knn_topk,
-     odom_corr and knn_select, and never knn_topk_dyn.
-The last three lines are the kernels JSON, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+     odom_corr and knn_select, and never knn_topk_dyn;
+  6. replay bench.py's workload through loam_tpu_torch.parallel.replay.
+     batched_replay: B=8 scenarios x F=17 full-density sweeps at
+     bench.py's configuration (hybrid cadence, no drift re-gather), the
+     scenarios made by bench.py's recipe.  Each scenario's poses must be
+     finite and within 1e-4 rad / 1e-3 m of its own single-scenario
+     replay on the card, with the same cadence; the batch must launch
+     knn_topk, odom_corr, knn_topk_dyn, knn_select and select_walk, and
+     launch knn_topk fewer times than the eight single replays together.
+     Prints frames/s of the batch and of the single replays, peak device
+     memory and the host reads of a mapping frame, batched and single;
+  7. the long golden gates of tests/test_golden_parity.py on the card:
+     100 straight frames of 600 azimuths at its CFG (the cell-bucket map)
+     against tests/golden/pipeline.run_pipeline (odometry ATE < 1 cm,
+     integrated and aft-mapped ATE < 5 cm, the oracle's cadence, yaw
+     within 0.2 deg), and its first 30 frames at CFG_EXACT with
+     map_exact_regather_every=5 (integrated ATE < 5 cm).
+The kernel rows carry the batch's shapes too (B=8 scenarios), each
+compared bit for bit.  The last lines are the smoke's seconds, the
+kernels JSON, the card's name and power limit, and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -70,13 +88,15 @@ PAIR_OPS = 9       # 3 sub, 3 mul, 2 add, 1 compare per query/point pair
 # name -> (what it was, how it was timed, {shape prefix: ms})
 EARLIER_MS = {
     "knn_topk": ("the one-thread-a-query kernel", "a call",
-                 {"Q=256,M=2048,": 0.0627, "Q=512,M=16384,": 0.2656}),
+                 {"B=1,Q=256,M=2048,": 0.0627, "B=1,Q=512,M=16384,": 0.2656}),
     "odom_corr": ("the one-thread-a-query kernel", "a call",
-                  {"Q=256,M=2048,": 0.1353, "Q=512,M=16384,": 0.4219}),
+                  {"B=1,Q=256,M=2048,": 0.1353,
+                   "B=1,Q=512,M=16384,": 0.4219}),
     "knn_topk_dyn": ("the one-thread-a-query kernel", "on the device",
-                     {"Q=2048,M=32768,": 0.3393, "Q=8192,M=65536,": 0.2228}),
+                     {"B=1,Q=2048,M=32768,": 0.3393,
+                      "B=1,Q=8192,M=65536,": 0.2228}),
     "knn_topk_dyn_k8": ("the one-thread-a-query kernel", "on the device",
-                        {"Q=8192,M=65536,": 0.3545}),
+                        {"B=1,Q=8192,M=65536,": 0.3545}),
     "kselect": ("the one-warp-a-query kernel", "on the device",
                 {"Q=8192,C=8,k=5,": 0.0093, "Q=8192,C=24,k=5,": 0.0091,
                  "Q=2048,C=864,k=24,": 0.0276}),
@@ -115,11 +135,55 @@ IMU_ATTITUDE_GATE = 0.3      # deg, largest pitch/roll gap
 IMU_GT_GATE = 0.30           # m, integrated ATE vs the ground truth
 IMU_MOVES = 1e-3             # m, the IMU must move the trajectory
 
+# bench.py's workload (bench.py:448-449, its _cfg() and _data recipe)
+BATCH_B = 8
+BATCH_F = 17
+BATCH_PATH = ("knn_topk", "odom_corr", "knn_topk_dyn", "knn_select",
+              "select_walk")
+BATCH_ROT = 1e-4     # rad, each scenario against its single replay
+BATCH_TRANS = 1e-3   # m
+
+# the long golden gates (tests/test_golden_parity.py:22-46,72-145,186-194)
+GOLDEN_F = 100
+GOLDEN_EXACT_F = 30
+GOLDEN_AZIMUTH = 600
+GOLDEN_SEED = 7
+GOLDEN_ODOM_GATE = 0.01      # m
+GOLDEN_YAW_GATE = 0.2        # deg
+
 
 def replay_config(name: str):
     from loam_tpu_torch.config import LoamConfig
 
     return dataclasses.replace(LoamConfig(), **REPLAYS[name][0])
+
+
+def batch_config():
+    """bench.py's _cfg(): full density (ring width 2048), tables 2^14 /
+    2^15, search buckets 2^12, local-map caps 8192 / 16384, the hybrid
+    cadence (map_exact_regather_every=5) without the drift re-gather."""
+    from loam_tpu_torch.config import LoamConfig
+
+    return dataclasses.replace(
+        LoamConfig(), corner_table_size=1 << 14, surf_table_size=1 << 15,
+        search_buckets=1 << 12, max_corner_from_map=8192,
+        max_surf_from_map=16384, map_exact_knn=True,
+        map_exact_regather_every=5, knn_regather_drift=0.0)
+
+
+def golden_config(exact: bool):
+    """tests/test_golden_parity.py's CFG (the cell-bucket map) or its
+    CFG_EXACT with the hybrid cadence (map_exact_regather_every=5)."""
+    from loam_tpu_torch.config import LoamConfig
+
+    over = dict(ring_width=1024, corner_table_size=1 << 15,
+                surf_table_size=1 << 17)
+    if exact:
+        over.update(max_corner_from_map=16384, max_surf_from_map=32768,
+                    map_exact_regather_every=5)
+    else:
+        over.update(map_exact_knn=False)
+    return dataclasses.replace(LoamConfig(), **over)
 
 
 def imu_config():
@@ -232,6 +296,47 @@ def make_sweeps():
     return raw, np.stack([s[1] for s in sweeps])
 
 
+def batch_sweeps():
+    """bench.py's _data recipe with the port's io/synth: BATCH_B random
+    worlds, speeds 0.6-1.4 m/s, yaw rates +-0.15 rad/s, BATCH_F
+    full-density sweeps each.  Returns (raw (B, F, N, 3), mask (B, F, N),
+    seconds)."""
+    from loam_tpu_torch.io import synth
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    raws, msks = [], []
+    for b in range(BATCH_B):
+        world = synth.make_world(seed=int(rng.integers(1 << 30)))
+        poses = synth.straight_trajectory(
+            BATCH_F, speed=float(rng.uniform(0.6, 1.4)),
+            yaw_rate=float(rng.uniform(-0.15, 0.15)))
+        poses = np.vstack([poses[:1], poses])[: BATCH_F + 1]
+        sweeps = [synth.simulate_sweep(world, poses[k], poses[k + 1],
+                                       n_azimuth=N_AZIMUTH,
+                                       seed=b * BATCH_F + k)
+                  for k in range(BATCH_F)]
+        raws.append(np.stack([x for x, _ in sweeps]).astype(np.float32))
+        msks.append(np.stack([m for _, m in sweeps]))
+    return np.stack(raws), np.stack(msks), time.perf_counter() - t0
+
+
+def golden_sequence():
+    """The 100-frame straight sequence of tests/test_golden_parity.py
+    (_make_sequence("straight")), a NumPy copy."""
+    from loam_tpu_torch.io import synth
+
+    world = synth.make_world(seed=GOLDEN_SEED)
+    poses = synth.straight_trajectory(GOLDEN_F, speed=0.9, yaw_rate=0.12)
+    poses = np.vstack([poses[:1], poses])[: GOLDEN_F + 1]
+    sweeps = [synth.simulate_sweep(world, poses[k], poses[k + 1],
+                                   n_azimuth=GOLDEN_AZIMUTH,
+                                   seed=GOLDEN_SEED + k)
+              for k in range(GOLDEN_F)]
+    return (np.stack([x for x, _ in sweeps]),
+            np.stack([m for _, m in sweeps]))
+
+
 def _library_knn(q, ref, k):
     """cdist + topk over the live queries and references."""
     return torch.cdist(q, ref).topk(k, dim=-1, largest=False)
@@ -249,8 +354,8 @@ def kernel_phase(dev, raw, msk, cfg, imu):
     i32 = dict(dtype=torch.int32, device=dev)
     rows = []
 
-    def cloud(n, live, spread):
-        pts = rng.uniform(-spread, spread, (1, n, 3)).astype(np.float32)
+    def cloud(n, live, spread, B=1):
+        pts = rng.uniform(-spread, spread, (B, n, 3)).astype(np.float32)
         pts[:, live:] = 0.0
         return torch.tensor(pts, device=dev)
 
@@ -262,34 +367,43 @@ def kernel_phase(dev, raw, msk, cfg, imu):
         row["other_shapes"] = shapes[:-1]
         rows.append(row)
 
+    def near(ref, live, Q, sigma):
+        """Q queries (B, Q, 3) scattered around live references."""
+        B = ref.shape[0]
+        pick = torch.tensor(rng.integers(0, live, (B, Q)), device=dev)
+        base = torch.gather(ref, 1, pick[..., None].expand(B, Q, 3))
+        return (base + torch.tensor(rng.normal(0, sigma, (B, Q, 3)),
+                                    device=dev)).float().contiguous()
+
     # ---- knn_topk k=1: the odometry 1-NN through its wrapper, as the
     # odometry calls it (a lattice cloud full of exact ties, then the
-    # corner and surf shapes), every output compared exactly
+    # corner and surf shapes, the surf shape also for the batch of
+    # BATCH_B scenarios), every output compared exactly
     shapes = []
-    for Q, M, ties in ((512, 4096, True), (256, 2048, False),
-                       (512, 16384, False)):
+    for B, Q, M, ties in ((1, 512, 4096, True), (1, 256, 2048, False),
+                          (BATCH_B, 512, 16384, False),
+                          (1, 512, 16384, False)):
         live = M * 2 // 3
-        n_ref = torch.tensor([live], **i32)
-        n_q = torch.tensor([Q], **i32)
+        n_ref = torch.full((B,), live, **i32)
+        n_q = torch.full((B,), Q, **i32)
         if ties:
-            ref = torch.tensor(lattice(rng, (1, M, 3)), device=dev)
-            q = torch.tensor(lattice(rng, (1, Q, 3)), device=dev)
+            ref = torch.tensor(lattice(rng, (B, M, 3)), device=dev)
+            q = torch.tensor(lattice(rng, (B, Q, 3)), device=dev)
         else:
-            ref = cloud(M, live, 30.0)
-            q = (ref[:, rng.integers(0, live, Q)]
-                 + torch.tensor(rng.normal(0, 0.2, (1, Q, 3)), device=dev)
-                 ).float().contiguous()
-        t_lo, t_hi = KN.full_windows(1, Q, M, 256, 512, dev)
+            ref = cloud(M, live, 30.0, B)
+            q = near(ref, live, Q, 0.2)
+        t_lo, t_hi = KN.full_windows(B, Q, M, 256, 512, dev)
         run_k = lambda: KN.knn_topk(q, ref, n_ref, 1, tq=256, tm=512)
         run_p = lambda: KN.knn_topk_plain(q, ref, n_q, n_ref, 1, t_lo, t_hi,
                                           tq=256, tm=512)
         shapes.append(dict(
-            shape=f"Q={Q},M={M},live={live},k=1" + (",lattice" * ties),
+            shape=f"B={B},Q={Q},M={M},live={live},k=1"
+                  + (",lattice" * ties),
             max_abs_err=_compare("knn_topk", run_k(), run_p()),
             ms=time_ms(run_k), device_ms=device_ms(run_k),
             plain_ms=time_ms(run_p),
-            library_ms=time_ms(lambda: _library_knn(q[0], ref[0, :live], 1)),
-            **bound(12 * (Q + live) + 8 * Q, PAIR_OPS * Q * live)))
+            library_ms=time_ms(lambda: _library_knn(q, ref[:, :live], 1)),
+            **bound(B * (12 * (Q + live) + 8 * Q), PAIR_OPS * B * Q * live)))
     add("knn_topk", "knn_topk", "loam_tpu_torch/csrc/knn_nearest.cu",
         "loam_tpu/ops/pallas/knn_topk.py:63", shapes)
 
@@ -300,29 +414,50 @@ def kernel_phase(dev, raw, msk, cfg, imu):
     # 3 references, one with an empty window, one whose window needs both
     # clamps, three dead blocks.
     def windowed(name, k, q, ref, n_q, n_ref_i, t_lo, t_hi, tq, tm, note=""):
-        Q, M = q.shape[1], ref.shape[1]
-        nq_t = torch.tensor([n_q], **i32)
-        nr_t = torch.tensor([n_ref_i], **i32)
+        B, Q, M = q.shape[0], q.shape[1], ref.shape[1]
+        nq_t = torch.full((B,), n_q, **i32)
+        nr_t = torch.full((B,), n_ref_i, **i32)
         run_k = lambda: KN._launch(q, ref, nq_t, nr_t, k, t_lo, t_hi, tq, tm)
         run_p = lambda: KN.knn_topk_plain(q, ref, nq_t, nr_t, k, t_lo, t_hi,
                                           tq=tq, tm=tm)
         # references each live query block really scans
         blocks = -(-n_q // tq)
-        seen = (torch.clamp(t_hi[0, :blocks].long() * tm, max=n_ref_i)
-                - t_lo[0, :blocks].long().clamp(min=0) * tm).clamp(min=0)
+        seen = (torch.clamp(t_hi[:, :blocks].long() * tm, max=n_ref_i)
+                - t_lo[:, :blocks].long().clamp(min=0) * tm).clamp(min=0)
         pairs = int(seen.sum()) * tq
         return dict(
-            shape=f"Q={Q},M={M},live={n_q}x{n_ref_i},k={k},pairs={pairs}"
-                  + note,
+            shape=f"B={B},Q={Q},M={M},live={n_q}x{n_ref_i},k={k},"
+                  f"pairs={pairs}" + note,
             max_abs_err=_compare(name, run_k(), run_p()),
             ms=time_ms(run_k), device_ms=device_ms(run_k),
             plain_ms=time_ms(run_p),
-            # materialises the live (n_q, n_ref) matrix: 1.2 GB at the
-            # largest shape
+            # materialises the live (n_q, n_ref) matrices: 1.2 GB a
+            # scenario at the largest shape
             library_ms=time_ms(lambda: _library_knn(
-                q[0, :n_q], ref[0, :n_ref_i], k), reps=5),
-            **bound(12 * (n_q + n_ref_i) + 8 * k * blocks * tq,
+                q[:, :n_q], ref[:, :n_ref_i], k), reps=5),
+            **bound(B * (12 * (n_q + n_ref_i) + 8 * k * blocks * tq),
                     PAIR_OPS * pairs))
+
+    def sorted_cloud(B, Q, M, n_q, n_ref_i, margin, tq, tm):
+        """B slabs of sorted references with queries around them, and
+        each scenario's tile windows."""
+        half = np.array([60.0, 20.0, 5.0])
+        refp = np.zeros((B, M, 3), np.float32)
+        qp = np.zeros((B, Q, 3), np.float32)
+        for b in range(B):
+            ref_np = rng.uniform(-half, half, (n_ref_i, 3)).astype(np.float32)
+            ref_np = ref_np[np.argsort(ref_np[:, 0], kind="stable")]
+            refp[b, :n_ref_i] = ref_np
+            q_np = ref_np[rng.integers(0, n_ref_i, n_q)] + rng.normal(
+                0, 0.3, (n_q, 3))
+            qp[b, :n_q] = q_np[np.argsort(q_np[:, 0], kind="stable")]
+        q = torch.tensor(qp, device=dev)
+        ref = torch.tensor(refp, device=dev)
+        mask = torch.arange(M, device=dev) < n_ref_i
+        t_lo, t_hi = KN.tile_windows(
+            q[..., 0], torch.full((B,), n_q, **i32), ref[..., 0],
+            mask.expand(B, M), tq, tm, margin + 1e-3)
+        return q, ref, t_lo.contiguous(), t_hi.contiguous()
 
     tq, tm = 256, 512
     for k, margin, name in ((5, 1.0, "knn_topk_dyn"),
@@ -334,54 +469,48 @@ def kernel_phase(dev, raw, msk, cfg, imu):
             name, k, torch.tensor(lattice(rng, (1, Q, 3)), device=dev),
             torch.tensor(lattice(rng, (1, M, 3)), device=dev),
             4 * tq + tq // 2 + 1, 7 * tm + 3, t_lo, t_hi, tq, tm, ",lattice")]
-        sizes = ((2048, 32768, 1500, 25000), (8192, 65536, 6000, 50000))
-        for Q, M, n_q, n_ref_i in sizes if k == 5 else sizes[1:]:
-            half = np.array([60.0, 20.0, 5.0])
-            ref_np = rng.uniform(-half, half, (n_ref_i, 3)).astype(np.float32)
-            ref_np = ref_np[np.argsort(ref_np[:, 0], kind="stable")]
-            refp = np.zeros((1, M, 3), np.float32)
-            refp[0, :n_ref_i] = ref_np
-            q_np = ref_np[rng.integers(0, n_ref_i, n_q)] + rng.normal(
-                0, 0.3, (n_q, 3))
-            q_np = q_np[np.argsort(q_np[:, 0], kind="stable")]
-            qp = np.zeros((1, Q, 3), np.float32)
-            qp[0, :n_q] = q_np
-            q = torch.tensor(qp, device=dev)
-            ref = torch.tensor(refp, device=dev)
-            mask = torch.arange(M, device=dev) < n_ref_i
-            t_lo, t_hi = KN.tile_windows(
-                q[0, :, 0], torch.tensor(n_q, **i32), ref[0, :, 0], mask, tq,
-                tm, margin + 1e-3)
-            shapes.append(windowed(name, k, q, ref, n_q, n_ref_i,
-                                   t_lo[None].contiguous(),
-                                   t_hi[None].contiguous(), tq, tm))
+        # (scenarios, Q, M, live queries, live references); K=8 also at
+        # the batch's BATCH_B scenarios
+        sizes = ((1, 2048, 32768, 1500, 25000),
+                 (BATCH_B, 8192, 65536, 6000, 50000),
+                 (1, 8192, 65536, 6000, 50000))
+        for B, Q, M, n_q, n_ref_i in sizes if k == 5 else sizes[1:]:
+            if k == 5 and B > 1:
+                continue
+            q, ref, t_lo, t_hi = sorted_cloud(B, Q, M, n_q, n_ref_i,
+                                              margin, tq, tm)
+            shapes.append(windowed(name, k, q, ref, n_q, n_ref_i, t_lo,
+                                   t_hi, tq, tm))
         add(name, "knn_topk_dyn", "loam_tpu_torch/csrc/knn_topk.cu",
             "loam_tpu/ops/pallas/knn_topk.py:133", shapes)
 
     # ---- odom_corr: surf walks on a lattice cloud with locally unsorted
     # rings (exact ties within and across the two sides), then corner and
-    # surf walks on a ring-sorted cloud; every output compared exactly
+    # surf walks on a ring-sorted cloud, the surf walks also for the
+    # batch of BATCH_B scenarios; every output compared exactly
     shapes = []
-    for Q, M, surf, ties in ((512, 4096, True, True),
-                             (256, 2048, False, False),
-                             (512, 16384, True, False)):
+    for B, Q, M, surf, ties in ((1, 512, 4096, True, True),
+                                (1, 256, 2048, False, False),
+                                (BATCH_B, 512, 16384, True, False),
+                                (1, 512, 16384, True, False)):
         live = M * 2 // 3
-        rings = np.zeros((1, M), np.int32)
-        rings[0, :live] = np.sort(rng.integers(0, 16, live))
-        j1 = torch.tensor(rng.integers(-1, live, (1, Q)), **i32)
+        rings = np.zeros((B, M), np.int32)
+        rings[:, :live] = np.sort(rng.integers(0, 16, (B, live)), -1)
+        j1 = torch.tensor(rng.integers(-1, live, (B, Q)), **i32)
         if ties:
-            rings[0, :live] = np.clip(
-                rings[0, :live] + rng.integers(-2, 3, live), 0, 15)
-            ref = torch.tensor(lattice(rng, (1, M, 3)), device=dev)
-            q = torch.tensor(lattice(rng, (1, Q, 3)), device=dev)
+            rings[:, :live] = np.clip(
+                rings[:, :live] + rng.integers(-2, 3, (B, live)), 0, 15)
+            ref = torch.tensor(lattice(rng, (B, M, 3)), device=dev)
+            q = torch.tensor(lattice(rng, (B, Q, 3)), device=dev)
         else:
-            ref = cloud(M, live, 30.0)
-            q = (ref[:, j1[0].clamp(min=0).long()]
-                 + torch.tensor(rng.normal(0, 0.3, (1, Q, 3)), device=dev)
-                 ).float().contiguous()
+            ref = cloud(M, live, 30.0, B)
+            base = torch.gather(ref, 1, j1.clamp(min=0).long()[..., None]
+                                .expand(B, Q, 3))
+            q = (base + torch.tensor(rng.normal(0, 0.3, (B, Q, 3)),
+                                     device=dev)).float().contiguous()
         ring_t = torch.tensor(rings, device=dev)
-        n_q, n_ref = torch.tensor([Q * 3 // 4], **i32), \
-            torch.tensor([live], **i32)
+        n_q = torch.full((B,), Q * 3 // 4, **i32)
+        n_ref = torch.full((B,), live, **i32)
         args = (q, ref, ring_t, j1, n_q, n_ref)
         kw = dict(surf=surf, window=cfg.ring_window, truncate=True)
         run_k = lambda: OC._launch(*args, **kw)
@@ -390,13 +519,14 @@ def kernel_phase(dev, raw, msk, cfg, imu):
                                      window=cfg.ring_window, truncate=True)
         visited = int(up.sum()) + int(dn.sum())
         shapes.append(dict(
-            shape=f"Q={Q},M={M},live={live},{'surf' if surf else 'corner'},"
-                  f"visited={visited}" + (",lattice" * ties),
+            shape=f"B={B},Q={Q},M={M},live={live},"
+                  f"{'surf' if surf else 'corner'},visited={visited}"
+                  + (",lattice" * ties),
             max_abs_err=_compare("odom_corr", run_k(), run_p()),
             ms=time_ms(run_k), device_ms=device_ms(run_k),
             plain_ms=time_ms(run_p), library_ms=None,
             # + a ring compare per visited point
-            **bound(12 * Q + 16 * live + 4 * Q + 16 * Q,
+            **bound(B * (12 * Q + 16 * live + 4 * Q + 16 * Q),
                     (PAIR_OPS + 1) * visited)))
     add("odom_corr", "odom_corr", "loam_tpu_torch/csrc/odom_corr.cu",
         "loam_tpu/ops/pallas/odom_corr.py:65", shapes)
@@ -408,11 +538,13 @@ def kernel_phase(dev, raw, msk, cfg, imu):
     # re-rank (C=24), the 27-cell gather chunk at k=1 (distances and one
     # round: what the other 23 rounds of the next shape cost) and at k=24
     # (C=864: ~60% valid, the second half of every row's cells
-    # duplicated, some rows with fewer than k valid)
+    # duplicated, some rows with fewer than k valid); the hybrid re-rank
+    # also at the batch's BATCH_B x 8192 rows
     shapes = []
     for Q, C, k, ties in ((8200, 24, 5, True), (1024, 864, 24, True),
-                          (8192, 8, 5, False), (8192, 24, 5, False),
-                          (2048, 864, 1, False), (2048, 864, 24, False)):
+                          (8192, 8, 5, False), (BATCH_B * 8192, 8, 5, False),
+                          (8192, 24, 5, False), (2048, 864, 1, False),
+                          (2048, 864, 24, False)):
         if ties:
             q_np = lattice(rng, (Q, 3))
             cand_np = lattice(rng, (Q, C, 3), half=3)
@@ -665,6 +797,172 @@ def imu_phase(dev, card: str, imu):
     return counts
 
 
+def mapping_host_reads(run):
+    """run(), counting the host reads of each mapping frame: scalar
+    reads of a device tensor (aten::_local_scalar_dense, what bool() and
+    int() of a tensor call) that torch.profiler sees on the CPU inside
+    mapping.mapping_step.  Returns (run()'s result, the counts in frame
+    order)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from loam_tpu_torch import mapping
+
+    step = mapping.mapping_step
+    reads = []
+
+    def counted(*args, **kw):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = step(*args, **kw)
+        reads.append(sum(e.count for e in prof.key_averages()
+                         if e.key == "aten::_local_scalar_dense"))
+        return out
+
+    mapping.mapping_step = counted
+    try:
+        return run(), reads
+    finally:
+        mapping.mapping_step = step
+
+
+def batch_phase(dev, card: str):
+    """bench.py's workload through batched_replay on the card, held to
+    each scenario's own single-scenario replay.  Returns the batch's
+    launch counts."""
+    from loam_tpu_torch import pipeline
+    from loam_tpu_torch.parallel import replay as PR
+
+    cfg = batch_config()
+    raw, msk, secs = batch_sweeps()
+    print(f"batch: {BATCH_B} scenarios x {BATCH_F} sweeps of {N_AZIMUTH} "
+          f"azimuths made in {secs:.1f} s on the host, all unique",
+          flush=True)
+    raw_t = torch.tensor(raw, device=dev)
+    msk_t = torch.tensor(msk, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    outs, counts, seconds = counted_replay(
+        "batch", BATCH_PATH, (),
+        lambda: PR.batched_replay(raw_t[:, :3], msk_t[:, :3], cfg),
+        lambda: PR.batched_replay(raw_t, msk_t, cfg))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    singles, single_counts, single_s = [], {}, 0.0
+    for b in range(BATCH_B):
+        one, c, t = counted_replay(
+            f"batch scenario {b}", BATCH_PATH, (), lambda: None,
+            lambda: pipeline.replay_sweeps(raw_t[b], msk_t[b], cfg))
+        singles.append(one)
+        single_s += t
+        for n, v in c.items():
+            single_counts[n] = single_counts.get(n, 0) + v
+    # host reads of each mapping frame: the batch's, and the most any
+    # single replay makes at that frame
+    _, batch_reads = mapping_host_reads(
+        lambda: PR.batched_replay(raw_t, msk_t, cfg))
+    single_reads = np.max([mapping_host_reads(
+        lambda: pipeline.replay_sweeps(raw_t[b], msk_t[b], cfg))[1]
+        for b in range(BATCH_B)], 0).tolist()
+    failed, gap = [], [0.0, 0.0]
+    for b, one in enumerate(singles):
+        got = {n: getattr(outs, n)[b].cpu().numpy() for n in
+               ("pose_odom", "pose_aft", "pose_integrated", "mapped")}
+        if not np.isfinite(got["pose_integrated"]).all():
+            failed.append(f"scenario {b}: non-finite poses")
+        if not np.array_equal(got["mapped"], one.mapped.cpu().numpy()):
+            failed.append(f"scenario {b}: cadence differs from its single "
+                          "replay")
+        for n in ("pose_odom", "pose_aft", "pose_integrated"):
+            d = np.abs(got[n].astype(np.float64)
+                       - getattr(one, n).cpu().numpy())
+            rot, trans = float(d[:, :3].max()), float(d[:, 3:].max())
+            gap = [max(gap[0], rot), max(gap[1], trans)]
+            if not (rot < BATCH_ROT and trans < BATCH_TRANS):
+                failed.append(f"scenario {b} {n}: {rot} rad, {trans} m "
+                              "from its single replay")
+    frames = BATCH_B * BATCH_F
+    print(f"replay batch: {BATCH_B} x {BATCH_F} frames in {seconds:.3f} s "
+          f"= {frames / seconds:.2f} frames/s batched; the {BATCH_B} "
+          f"single replays {frames / single_s:.2f} frames/s "
+          f"({single_s:.3f} s); largest pose gap to them {gap[0]:.3g} rad, "
+          f"{gap[1]:.3g} m; peak device memory {peak:.1f} MiB; host "
+          f"reads a mapping frame batched {batch_reads}, the most of a "
+          f"single replay {single_reads}; launches batched {counts}, the "
+          f"single replays together {single_counts} [{card}]", flush=True)
+    if not counts["knn_topk"] < single_counts["knn_topk"]:
+        failed.append(f"knn_topk launches {counts['knn_topk']} batched, "
+                      f"{single_counts['knn_topk']} single")
+    if any(b > s for b, s in zip(batch_reads, single_reads)):
+        failed.append(f"host reads a mapping frame {batch_reads} batched, "
+                      f"at most {single_reads} single")
+    if failed:
+        raise AssertionError(f"batch replay failed its gates: {failed}")
+    return counts
+
+
+def golden_phase(dev, card: str):
+    """The long golden gates of tests/test_golden_parity.py on the card.
+    Returns the launch counts of its two replays."""
+    from golden.pipeline import run_pipeline
+    from loam_tpu_torch import metrics, pipeline
+
+    raw, msk = golden_sequence()
+    t0 = time.perf_counter()
+    oracle = run_pipeline(raw, msk)
+    print(f"golden: {GOLDEN_F} sweeps of {GOLDEN_AZIMUTH} azimuths, the "
+          f"oracle in {time.perf_counter() - t0:.1f} s on the host",
+          flush=True)
+    raw_t = torch.tensor(raw, device=dev)
+    msk_t = torch.tensor(msk, device=dev)
+    cfg = golden_config(exact=False)
+    outs, cells, seconds = counted_replay(
+        "golden", ("knn_topk", "odom_corr", "select_walk", "knn_select"),
+        ("knn_topk_dyn",),
+        lambda: pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg),
+        lambda: pipeline.replay_sweeps(raw_t, msk_t, cfg))
+    pose = {n: getattr(outs, n).cpu().numpy()
+            for n in ("pose_odom", "pose_aft", "pose_integrated")}
+    ate = {n: metrics.ate_rmse(pose[n][:, 3:6], oracle[key][:, 3:6])
+           for n, key in (("pose_odom", "odom"), ("pose_aft", "aft"),
+                          ("pose_integrated", "integrated"))}
+    yaw = float(np.degrees(np.abs(pose["pose_integrated"][:, 1]
+                                  - oracle["integrated"][:, 1]).max()))
+    cadence = np.array_equal(outs.mapped.cpu().numpy(), oracle["mapped"])
+    print(f"replay golden: {GOLDEN_F} frames in {seconds:.3f} s = "
+          f"{GOLDEN_F / seconds:.2f} frames/s; ATE vs golden oracle "
+          f"odometry {100 * ate['pose_odom']:.4f} cm, integrated "
+          f"{100 * ate['pose_integrated']:.4f} cm, aft-mapped "
+          f"{100 * ate['pose_aft']:.4f} cm; yaw gap {yaw:.4f} deg; mapping "
+          f"cadence equal: {cadence}; launches {cells} [{card}]", flush=True)
+
+    cfg = golden_config(exact=True)
+    n = GOLDEN_EXACT_F
+    hyb, hybrid, seconds = counted_replay(
+        "golden hybrid", ("knn_topk", "odom_corr", "select_walk",
+                          "knn_topk_dyn", "knn_select"), (),
+        lambda: pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg),
+        lambda: pipeline.replay_sweeps(raw_t[:n], msk_t[:n], cfg))
+    est = hyb.pose_integrated.cpu().numpy()
+    ate_h = metrics.ate_rmse(est[:, 3:6], oracle["integrated"][:n, 3:6])
+    print(f"replay golden hybrid: {n} frames in {seconds:.3f} s = "
+          f"{n / seconds:.2f} frames/s; integrated ATE vs golden oracle "
+          f"{100 * ate_h:.4f} cm; launches {hybrid} [{card}]", flush=True)
+
+    finite = all(np.isfinite(p).all() for p in pose.values()) \
+        and np.isfinite(est).all()
+    gates = ((finite, "non-finite poses"),
+             (ate["pose_odom"] < GOLDEN_ODOM_GATE,
+              f"odometry ATE {ate['pose_odom']:.4f} m"),
+             (ate["pose_integrated"] < ATE_GATE,
+              f"integrated ATE {ate['pose_integrated']:.4f} m"),
+             (ate["pose_aft"] < ATE_GATE,
+              f"aft-mapped ATE {ate['pose_aft']:.4f} m"),
+             (cadence, "mapping cadence differs from the oracle"),
+             (yaw < GOLDEN_YAW_GATE, f"yaw gap {yaw} deg"),
+             (ate_h < ATE_GATE, f"hybrid integrated ATE {ate_h:.4f} m"))
+    failed = [what for ok, what in gates if not ok]
+    if failed:
+        raise AssertionError(f"golden replays failed their gates: {failed}")
+    return cells, hybrid
+
+
 def print_rows(rows, card: str) -> None:
     for r in rows:
         for s in r["other_shapes"] + [r]:
@@ -682,6 +980,7 @@ def print_rows(rows, card: str) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False)")
@@ -731,22 +1030,31 @@ def main() -> int:
                 f"{name} replay: mapping cadence differs from the oracle")
 
     launches["imu"] = imu_phase(dev, card, imu)
+    launches["batch"] = batch_phase(dev, card)
+    launches["golden"], launches["golden hybrid"] = golden_phase(dev, card)
 
-    # the windowed k-NN runs at k=5 in the default replay only and at k=8
-    # in the hybrid replay only; every other count sums over the replays
+    # the windowed k-NN runs at k=5 in the strict replay only and at k=8
+    # in the hybrid ones; every other count sums over the replays
+    k8_runs = ("hybrid", "batch", "golden hybrid")
     for r in rows:
         if r["name"] == "knn_topk_dyn":
             r["launches"] = launches["default"]["knn_topk_dyn"]
         elif r["name"] == "knn_topk_dyn_k8":
-            r["launches"] = launches["hybrid"]["knn_topk_dyn"]
+            r["launches"] = sum(launches[n]["knn_topk_dyn"] for n in k8_runs)
         else:
             r["launches"] = sum(c[r["counter"]] for c in launches.values())
         if r["launches"] <= 0:
             raise AssertionError(f"no replay launched {r['name']}")
+        if r["name"] == "select_walk":
+            # the batch's frontend walks its B x F x 16 rings in one launch
+            for shape in r["other_shapes"]:
+                if shape["shape"].startswith(f"B={BATCH_B},"):
+                    shape["launches"] = launches["batch"]["select_walk"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "shape", "other_shapes")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

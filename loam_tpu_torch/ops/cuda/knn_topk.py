@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from ...types import per_scenario
 from ..nn import BIG, pairwise_sq_dists
 from . import _build
 
@@ -162,72 +163,88 @@ def tile(n: int, prefs) -> int:
 
 def tile_windows(qa, n_q, ra, ref_mask, tq: int, tm: int, margin: float):
     """Per-query-block reference-tile windows (loam_tpu knn_topk.py:
-    389-419).  qa (Q,) / ra (M,) coordinates on the pruning axis; the
-    reference is sorted ascending on it over its live prefix.  Returns
-    (t_lo, t_hi) int32 (Q/tq,)."""
+    389-419).  qa (..., Q) / ra (..., M) coordinates on the pruning
+    axis, n_q (...) live queries; each reference is sorted ascending on
+    it over its live prefix.  Returns (t_lo, t_hi) int32 (..., Q/tq)."""
     big = 3.0e38
-    Q, M = qa.shape[0], ra.shape[0]
-    live_q = torch.arange(Q, device=qa.device) < n_q
-    qb = torch.where(live_q, qa, big).reshape(Q // tq, tq)
-    qlo = qb.min(1).values - margin
-    qhi = torch.where(qb >= big, -big, qb).max(1).values + margin
-    rt = torch.where(ref_mask, ra, big).reshape(-1, tm)
-    tmin = rt.min(1).values
-    tmax = torch.where(rt >= big, -big, rt).max(1).values
+    Q, M = qa.shape[-1], ra.shape[-1]
+    lead = qa.shape[:-1]
+    live_q = torch.arange(Q, device=qa.device) < n_q[..., None]
+    qb = torch.where(live_q, qa, big).reshape(lead + (Q // tq, tq))
+    qlo = qb.min(-1).values - margin
+    qhi = torch.where(qb >= big, -big, qb).max(-1).values + margin
+    rt = torch.where(ref_mask, ra, big).reshape(lead + (-1, tm))
+    tmin = rt.min(-1).values
+    tmax = torch.where(rt >= big, -big, rt).max(-1).values
     tmax = torch.where(tmax <= -big, big, tmax)
-    t_lo = (tmax[None, :] < qlo[:, None]).sum(1, dtype=torch.int32)
-    t_hi = M // tm - (tmin[None, :] > qhi[:, None]).sum(1, dtype=torch.int32)
+    t_lo = (tmax[..., None, :] < qlo[..., :, None]).sum(-1, dtype=torch.int32)
+    t_hi = M // tm - (tmin[..., None, :] > qhi[..., :, None]).sum(
+        -1, dtype=torch.int32)
     return t_lo, t_hi.to(torch.int32)
 
 
 def recenter(q_xyz, ref_xyz, ref_mask):
-    """Queries and references relative to the live references' mean,
-    each (1, n, 3) for the kernels, and the live count (int32 ()).  Keeps
-    cancellation out of distances far from the origin."""
-    n_live = ref_mask.sum(dtype=torch.int32)
-    center = torch.where(ref_mask[:, None], ref_xyz, 0.0).sum(0) / \
-        torch.clamp(n_live.to(torch.float32), min=1.0)
-    return ((q_xyz - center)[None].contiguous(),
-            (ref_xyz - center)[None].contiguous(), n_live)
+    """Queries (B, Q, 3) and references (B, M, 3) relative to each
+    scenario's live-reference mean, contiguous for the kernels, and the
+    live counts (B,) int32.  Keeps cancellation out of distances far
+    from the origin.  Each scenario's sum is its own reduction
+    (types.per_scenario)."""
+    n_live = ref_mask.sum(-1, dtype=torch.int32)
+    total = per_scenario(
+        lambda r, m: torch.where(m[:, None], r, 0.0).sum(0), ref_xyz,
+        ref_mask)
+    center = total / torch.clamp(n_live.to(torch.float32), min=1.0)[:, None]
+    center = center[:, None, :]
+    return ((q_xyz - center).contiguous(), (ref_xyz - center).contiguous(),
+            n_live)
+
+
+def take_points(xyz, idx):
+    """xyz (B, M, 3) at indices idx (B, ...) into the point axis."""
+    B = xyz.shape[0]
+    flat = idx.reshape(B, -1)
+    out = torch.gather(xyz, 1, flat[..., None].expand(B, flat.shape[1], 3))
+    return out.reshape(idx.shape + (3,))
 
 
 def knn_points(q_xyz, ref_xyz, ref_mask, k: int = 5, n_q=None,
                prune_axis=None, prune_window: float | None = None):
-    """k nearest live references per query.  Returns (pts (Q, k, 3),
-    d2 (Q, k)) nearest-first, d2 = 1e30 where a neighbour is missing.
-    ref must be front-compacted.  With n_q (live queries, also
-    front-compacted), prune_axis (the axis the reference is sorted on,
-    a 0-dim tensor) and prune_window (the caller's gate radius), query
-    blocks only visit reference tiles within the window on that axis:
-    exact for every neighbour inside the gate (loam_tpu knn_points)."""
-    Q, M = q_xyz.shape[0], ref_xyz.shape[0]
+    """k nearest live references per query, per scenario: q_xyz
+    (B, Q, 3), ref_xyz (B, M, 3), ref_mask (B, M).  Returns
+    (pts (B, Q, k, 3), d2 (B, Q, k)) nearest-first, d2 = 1e30 where a
+    neighbour is missing.  ref must be front-compacted.  With n_q (B,)
+    (live queries, also front-compacted), prune_axis (B,) (the axis
+    each reference is sorted on) and prune_window (the caller's gate
+    radius), query blocks only visit reference tiles within the window
+    on that axis: exact for every neighbour inside the gate (loam_tpu
+    knn_points)."""
+    B, Q, _ = q_xyz.shape
+    M = ref_xyz.shape[1]
     dev = q_xyz.device
     qc, rc, n_live = recenter(q_xyz, ref_xyz, ref_mask)
     tq = tile(Q, (256, 128, 64, 32, 16, 8))
     tm = tile(M, (512, 256, 128))
-    n_ref = n_live.reshape(1)
     if n_q is None:
-        idx, d2k = knn_topk(qc, rc, n_ref, k, tq=tq, tm=tm)
+        idx, d2k = knn_topk(qc, rc, n_live, k, tq=tq, tm=tm)
     else:
         if prune_axis is not None and prune_window is not None:
-            axis = prune_axis.reshape(1).long()
-            qa = qc[0].index_select(1, axis)[:, 0]
-            ra = rc[0].index_select(1, axis)[:, 0]
+            axis = prune_axis.long()
+            qa = torch.gather(qc, 2, axis[:, None, None].expand(B, Q, 1))
+            ra = torch.gather(rc, 2, axis[:, None, None].expand(B, M, 1))
             # +1 mm absolute slack for the recentring rounding
-            t_lo, t_hi = tile_windows(qa, n_q, ra, ref_mask, tq, tm,
-                                      float(prune_window) + 1e-3)
-            t_lo, t_hi = t_lo[None], t_hi[None]
+            t_lo, t_hi = tile_windows(qa[..., 0], n_q, ra[..., 0], ref_mask,
+                                      tq, tm, float(prune_window) + 1e-3)
         else:
-            t_lo, t_hi = full_windows(1, Q, M, tq, tm, dev)
+            t_lo, t_hi = full_windows(B, Q, M, tq, tm, dev)
         idx, d2k = knn_topk_dyn(
-            qc, rc, n_q.to(torch.int32).reshape(1), n_ref, k,
+            qc, rc, n_q.to(torch.int32), n_live, k,
             t_lo.contiguous(), t_hi.contiguous(), tq=tq, tm=tm,
         )
-    idx, invalid = idx[0].long(), d2k[0] > 1e28
-    pts = ref_xyz[idx.clamp(0, M - 1)]
+    idx, invalid = idx.long(), d2k > 1e28
+    pts = take_points(ref_xyz, idx.clamp(0, M - 1))
     # exact distances in the caller's frame, nearest first
-    diff = q_xyz[:, None, :] - pts
+    diff = q_xyz[..., None, :] - pts
     d2 = torch.where(invalid, BIG, (diff * diff).sum(-1))
-    order = torch.argsort(d2, dim=1, stable=True)
-    return (torch.gather(pts, 1, order[..., None].expand(pts.shape)),
-            torch.gather(d2, 1, order))
+    order = torch.argsort(d2, dim=-1, stable=True)
+    return (torch.gather(pts, -2, order[..., None].expand(pts.shape)),
+            torch.gather(d2, -1, order))

@@ -13,8 +13,11 @@ from the same mid-run state:
              "surf_map": {...}, "transform_bef", "transform_aft",
              "nan_skips", "local_map_overflow"}}
 
-Voxel keys are uint32 in NumPy and int64 in the port.  The IMU inputs
-cross the same way: an ImuStream as {"t", "rpy", "acc", "mask"} and an
+Voxel keys are uint32 in NumPy and int64 in the port.  A tree with a
+leading scenario axis on every array (loam_tpu's
+parallel.replay.batched_initial_state, or any batched state) becomes a
+batched PipelineState, which the port's pipeline_step and replay_batch
+take as they are.  The IMU inputs cross the same way: an ImuStream as {"t", "rpy", "acc", "mask"} and an
 ImuTrans as {"rpy_start", "rpy_cur", "shift_from_start",
 "velo_from_start"}, any leading axes.
 """

@@ -2,6 +2,8 @@
 
 Fixed-capacity struct-of-arrays with an explicit validity mask.  Any
 leading axes (frames, scenarios) ride in front of the point axis.
+tree_map and where_tree act on any dataclass of tensors (states,
+outputs), the port's stand-in for jax.tree_util.
 """
 
 from __future__ import annotations
@@ -18,6 +20,54 @@ def _map_fields(obj, fn):
     )
 
 
+def tree_map(fn, obj, *rest):
+    """fn over the tensors of nested dataclasses and tuples (None stays
+    None); the trees in `rest` have obj's structure and give fn further
+    arguments."""
+    if obj is None:
+        return None
+    if isinstance(obj, tuple):
+        return tuple(tree_map(fn, *parts) for parts in zip(obj, *rest))
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: tree_map(fn, getattr(obj, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(obj)})
+    return fn(obj, *rest)
+
+
+def add_scenario_axis(tree):
+    """One scenario's tree as a batch of one (a leading axis of 1)."""
+    return tree_map(lambda t: t[None], tree)
+
+
+def drop_scenario_axis(tree):
+    """A batch of one back to its one scenario."""
+    return tree_map(lambda t: t[0], tree)
+
+
+def per_scenario(fn, *args):
+    """fn one scenario at a time: args are trees with a leading B axis
+    (args[0] a tensor), each call gets scenario b's slices, and the
+    results (tensors, tuples or dataclasses of them) are stacked into a
+    leading B axis again.  For the few small products and sums whose
+    rounding depends on how many scenarios ride along: on the card
+    cuBLAS and the reduction kernels choose their algorithm, and so the
+    order of their additions, from the batched shape, and on the CPU a
+    batched matrix times one column rounds otherwise than a single one.
+    A scenario's numbers must not depend on its neighbours."""
+    outs = [fn(*(tree_map(lambda t: t[b], a) for a in args))
+            for b in range(args[0].shape[0])]
+    return tree_map(lambda *ts: torch.stack(ts), *outs)
+
+
+def where_tree(cond, a, b):
+    """Per scenario: a where cond (B,) holds, else b (trees with a
+    leading B axis on every tensor)."""
+    return tree_map(lambda x, y: torch.where(
+        cond.reshape(cond.shape + (1,) * (x.dim() - 1)), x, y), a, b)
+
+
 @dataclasses.dataclass
 class PointCloud:
     """xyz (..., N, 3) float32 internal frame; rel (..., N) the
@@ -28,11 +78,13 @@ class PointCloud:
     mask: torch.Tensor
 
     @staticmethod
-    def zeros(n: int, device=None) -> "PointCloud":
+    def zeros(n: int, device=None, lead: tuple = ()) -> "PointCloud":
+        """An empty cloud of capacity n with leading axes `lead`."""
         return PointCloud(
-            xyz=torch.zeros((n, 3), dtype=torch.float32, device=device),
-            rel=torch.zeros((n,), dtype=torch.float32, device=device),
-            mask=torch.zeros((n,), dtype=torch.bool, device=device),
+            xyz=torch.zeros(lead + (n, 3), dtype=torch.float32,
+                            device=device),
+            rel=torch.zeros(lead + (n,), dtype=torch.float32, device=device),
+            mask=torch.zeros(lead + (n,), dtype=torch.bool, device=device),
         )
 
     @property

@@ -1,17 +1,21 @@
 """Where the time goes in the port's replay on one NVIDIA GPU.
 
-    python3 profile_torch_replay.py [default|hybrid|cells|imu ...]
+    python3 profile_torch_replay.py [default|hybrid|cells|imu|batch ...]
 
 Replays chip_smoke.py's 13 full-density synthetic sweeps through
-loam_tpu_torch in each named mapping mode (chip_smoke.REPLAYS), and for
+loam_tpu_torch in each named mapping mode (chip_smoke.REPLAYS), for
 "imu" chip_smoke.py's golden IMU scenario (40 sweeps with their IMU
-windows); all four when none is named.  Prints, after a warm-up replay:
+windows), and for "batch" chip_smoke.py's batch of bench.py's workload
+(B=8 scenarios x 17 full-density sweeps in lockstep through
+parallel.replay.batched_replay, the hybrid cadence); all five when none
+is named.  Prints, after a warm-up replay:
   * seconds per stage (ingest, IMU integration and deskew included;
     feature extraction, odometry, mapping), with a synchronise around
     each stage;
   * host reads a mapping frame: scalar reads (bool()/int() of a device
     tensor) and stream or device synchronisations the profiler saw
-    inside mapping_step, over the mapping frames that solved;
+    inside mapping_step, over the mapping frames that solved (in any
+    scenario of a batch);
   * a torch.profiler pass: device time by kernel (the twelve largest
     entries and every hand-written kernel, each with its rank), the
     device events counted, the hand-written kernels' share, and the
@@ -48,42 +52,52 @@ def _count(prof, keys) -> int:
 
 def stage_seconds(raw_t, msk_t, cfg, dev, imu=(),
                   count_reads: bool = False):
-    """Seconds per stage; imu: () or (ImuStream windows, sweep stamps).
-    With count_reads each mapping_step runs under its own profiler and
-    the host reads are returned in place of the times (which the
-    profiler distorts)."""
+    """Seconds per stage of one scenario (raw_t (F, N, 3)) or of a
+    lockstep batch (raw_t (B, F, N, 3)); imu: () or (ImuStream windows,
+    sweep stamps), one scenario only.  With count_reads each
+    mapping_step runs under its own profiler and the host reads are
+    returned in place of the times (which the profiler distorts)."""
     from torch.profiler import ProfilerActivity, profile
 
     from loam_tpu_torch import mapping, odometry, pipeline
     from loam_tpu_torch.ops.features import extract_features
 
+    lead = raw_t.shape[:-2]
     t0 = _now()
-    sweeps, imu_trans, map_rpy = pipeline.ingest_frames(raw_t, msk_t, cfg,
-                                                        *imu)
+    sweeps, imu_trans, map_rpy = pipeline.ingest_frames(
+        raw_t.flatten(0, -3), msk_t.flatten(0, -2), cfg, *imu)
     t1 = _now()
-    feats = extract_features(sweeps, cfg)
+    feats = extract_features(sweeps, cfg).map(
+        lambda t: t.reshape(lead + t.shape[1:]))
     t2 = _now()
-    state = pipeline.PipelineState.create(cfg, dev)
+    if len(lead) == 1:          # one scenario: the B=1 case of the batch
+        feats = feats.map(lambda t: t[None])
+        if imu:
+            imu_trans = imu_trans.map(lambda t: t[None])
+            map_rpy = map_rpy[None]
+    state = pipeline.PipelineState.create(cfg, dev,
+                                          batch=feats.sharp.mask.shape[0])
     odo, maps, reads, syncs = 0.0, [], [], []
-    for k in range(raw_t.shape[0]):
+    for k in range(lead[-1]):
         a = _now()
         odom_state, out = odometry.odometry_step(
-            state.odom, feats.map(lambda t: t[k]), cfg,
-            imu=imu_trans.map(lambda t: t[k]) if imu else None)
+            state.odom, feats.map(lambda t: t[:, k]), cfg,
+            imu=imu_trans.map(lambda t: t[:, k]) if imu else None)
         b = _now()
         odo += b - a
         map_state = state.map
         step = lambda: mapping.mapping_step(
             state.map, out.pose, out.corner_last, out.surf_last, cfg,
-            imu_rpy=map_rpy[k] if imu else None)
-        if bool(out.publish_to_mapping) and count_reads:
+            imu_rpy=map_rpy[:, k] if imu else None)
+        publish = bool(out.publish_to_mapping.any())
+        if publish and count_reads:
             with profile(activities=[ProfilerActivity.CPU]) as prof:
                 map_state, mout = step()
                 torch.cuda.synchronize()
-            if bool(mout.solved):
+            if bool(mout.solved.any()):
                 reads.append(_count(prof, (SCALAR_READ,)))
                 syncs.append(_count(prof, SYNC_CALLS) - 1)   # less our own
-        elif bool(out.publish_to_mapping):
+        elif publish:
             map_state, _ = step()
             maps.append(_now() - b)
         state = pipeline.PipelineState(odom=odom_state, map=map_state)
@@ -100,10 +114,17 @@ def profile_mode(name, cfg, raw_t, msk_t, dev, card, imu=()) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from loam_tpu_torch import pipeline
+    from loam_tpu_torch.parallel import replay as PR
 
-    head = (imu[0].map(lambda t: t[:3]), imu[1][:3]) if imu else ()
-    pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg, *head)
-    changes = CS.REPLAYS[name][0] if name in CS.REPLAYS else "golden IMU"
+    if raw_t.dim() == 4:
+        replay = lambda x, m: PR.batched_replay(x, m, cfg)
+        replay(raw_t[:, :3], msk_t[:, :3])
+    else:
+        replay = lambda x, m: pipeline.replay_sweeps(x, m, cfg, *imu)
+        head = (imu[0].map(lambda t: t[:3]), imu[1][:3]) if imu else ()
+        pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg, *head)
+    changes = {"imu": "golden IMU", "batch": "bench.py's workload, B=8 x "
+               "F=17"}.get(name) or CS.REPLAYS[name][0]
     print(f"== {name} {changes} [{card}]")
     print(f"stages [{card}]", json.dumps(stage_seconds(raw_t, msk_t, cfg,
                                                        dev, imu)), flush=True)
@@ -113,7 +134,7 @@ def profile_mode(name, cfg, raw_t, msk_t, dev, card, imu=()) -> None:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipeline.replay_sweeps(raw_t, msk_t, cfg, *imu)
+        replay(raw_t, msk_t)
         torch.cuda.synchronize()
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
@@ -123,9 +144,10 @@ def profile_mode(name, cfg, raw_t, msk_t, dev, card, imu=()) -> None:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = _now()
-    pipeline.replay_sweeps(raw_t, msk_t, cfg, *imu)
+    replay(raw_t, msk_t)
     wall = _now() - t0
-    print(f"replay {wall:.4f} s = {raw_t.shape[0] / wall:.3f} frames/s; "
+    frames = msk_t.shape[:-1].numel()
+    print(f"replay {wall:.4f} s = {frames / wall:.3f} frames/s; "
           f"device time {device_s:.4f} s in {sum(r[1] for r in rows)} "
           f"events, busy share {device_s / wall:.4f}; hand-written "
           f"kernels {sum(r[0] for r in mine) / 1e3:.3f} ms in "
@@ -140,7 +162,7 @@ def profile_mode(name, cfg, raw_t, msk_t, dev, card, imu=()) -> None:
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_replay: no CUDA device")
-    known = list(CS.REPLAYS) + ["imu"]
+    known = list(CS.REPLAYS) + ["imu", "batch"]
     modes = sys.argv[1:] or known
     unknown = [m for m in modes if m not in known]
     if unknown:
@@ -160,6 +182,11 @@ def main() -> int:
             (iraw, imsk, stream, t_scans), _ = CS.imu_inputs(dev)
             profile_mode(name, CS.imu_config(), iraw, imsk, dev, card,
                          (stream, t_scans))
+        elif name == "batch":
+            braw, bmsk, _ = CS.batch_sweeps()
+            profile_mode(name, CS.batch_config(),
+                         torch.tensor(braw, device=dev),
+                         torch.tensor(bmsk, device=dev), dev, card)
         else:
             profile_mode(name, CS.replay_config(name), raw_t, msk_t, dev,
                          card)

@@ -402,6 +402,46 @@ def test_replay_modes_agree_with_cpu(cuda):
         assert diff[:, :3].max() < 1e-4 and diff[:, 3:].max() < 1e-3, diff
 
 
+@pytest.mark.parametrize("mode", [{}, dict(map_exact_regather_every=5),
+                                  dict(map_exact_knn=False)])
+def test_batched_replay_equals_single_replays_on_card(cuda, mode):
+    """Three scenarios of five frames in one batched_replay on the card
+    equal three single replays on the card bit for bit, in each mapping
+    mode: every product and sum whose cuBLAS or reduction algorithm the
+    batch's shape would choose runs one scenario at a time
+    (types.per_scenario), and every kernel launch serves each scenario
+    of its grid alike."""
+    from loam_tpu_torch import pipeline
+    from loam_tpu_torch.io import synth
+    from loam_tpu_torch.parallel import replay
+
+    raws, msks = [], []
+    for seed, speed, yaw_rate in ((3, 0.9, 0.12), (5, 1.5, 0.35),
+                                  (9, 0.6, -0.2)):
+        world = synth.make_world(seed=seed)
+        poses = synth.straight_trajectory(5, speed=speed, yaw_rate=yaw_rate)
+        poses = np.vstack([poses[:1], poses])[:6]
+        sweeps = [synth.simulate_sweep(world, poses[i], poses[i + 1],
+                                       n_azimuth=480, seed=seed + i)
+                  for i in range(5)]
+        raws.append(np.stack([s[0] for s in sweeps]).astype(np.float32))
+        msks.append(np.stack([s[1] for s in sweeps]))
+    raw, msk = np.stack(raws), np.stack(msks)
+    cfg = dataclasses.replace(
+        LoamConfig(), ring_width=512, max_less_flat=2048,
+        less_flat_ring_cap=256, corner_table_size=1 << 12,
+        surf_table_size=1 << 13, search_buckets=1 << 10,
+        max_corner_from_map=1024, max_surf_from_map=2048,
+        max_corner_stack=512, max_surf_stack=1024, **mode)
+    batched = replay.batched_replay(raw, msk, cfg)
+    assert batched.pose_integrated.device.type == "cuda"
+    for b in range(3):
+        single = pipeline.replay_sweeps(raw[b], msk[b], cfg)
+        for name in ("pose_odom", "pose_aft", "pose_integrated", "mapped"):
+            assert torch.equal(getattr(batched, name)[b],
+                               getattr(single, name)), (b, name)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     """A CUDA tensor goes to the kernel or raises; nothing falls back."""
     q = torch.zeros(1, 256, 3, dtype=torch.float64, device=cuda)

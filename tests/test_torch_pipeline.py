@@ -105,9 +105,9 @@ def test_unported_paths_raise(bad):
 
 def test_port_runs_without_jax():
     """Importing the port and replaying two frames, without and with an
-    IMU stream, leaves jax and loam_tpu out of sys.modules: the port
-    keeps its own config and synthetic sweeps (the machine with the card
-    has no JAX)."""
+    IMU stream, and two scenarios in one batched replay, leaves jax and
+    loam_tpu out of sys.modules: the port keeps its own config and
+    synthetic sweeps (the machine with the card has no JAX)."""
     fields = dataclasses.asdict(parity_cfg())
     script = textwrap.dedent(f"""
         import sys
@@ -133,6 +133,12 @@ def test_port_runs_without_jax():
                              for i in range(4)))
         outs = pipeline.replay_sweeps(raw, msk, cfg, stream, t_scans,
                                       device="cpu")
+        assert torch.isfinite(outs.pose_integrated).all()
+        from loam_tpu_torch.parallel import replay
+        outs = replay.batched_replay(np.stack([raw, raw[::-1]]),
+                                     np.stack([msk, msk[::-1]]), cfg,
+                                     device="cpu")
+        assert outs.pose_integrated.shape == (2, 2, 6)
         assert torch.isfinite(outs.pose_integrated).all()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "loam_tpu"))
