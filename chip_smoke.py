@@ -53,7 +53,25 @@ Phases, each of which raises (non-zero exit) on failure:
      against tests/golden/pipeline.run_pipeline (odometry ATE < 1 cm,
      integrated and aft-mapped ATE < 5 cm, the oracle's cadence, yaw
      within 0.2 deg), and its first 30 frames at CFG_EXACT with
-     map_exact_regather_every=5 (integrated ATE < 5 cm).
+     map_exact_regather_every=5 (integrated ATE < 5 cm);
+  8. the offline command line (python -m loam_tpu_torch) at full width:
+     (a) `--synthetic 24 --stream-clouds --golden-compare --report-timing`
+     as a subprocess (the CLI's own recipe, 900 azimuths, strict exact
+     k-NN): exit 0, a passing golden verdict (integrated ATE < 5 cm), 24
+     finite poses in each TUM file, map points, and the cloud files the
+     cadence rule predicts (a registered cloud every mapping frame, a
+     surround cloud every chunk); (b) a bag of 16 full-density sweeps
+     (1800 azimuths) along the oscillating trajectory with its 200 Hz
+     IMU stream as raw sensor_msgs/Imu messages, run through cli.main
+     in this process with `--knn-cadence fast --stream-clouds
+     --golden-compare`: it must launch all five kernels, pass its gate,
+     and its integrated.tum must equal, to the file's six decimals, a
+     pipeline.replay_sweeps of the same loaded arrays and IMU windows;
+     (c) a checkpointed_replay of that bag's features (every 4 frames)
+     run for 8 frames, then resumed from the latest checkpoint by a new
+     manager: every pose equals an uninterrupted replay's bit for bit.
+     Prints frames/s, the ATEs, the timing reports, the bag's load
+     seconds, the checkpoint milliseconds and peak device memory.
 The kernel rows carry the batch's shapes too (B=8 scenarios), each
 compared bit for bit.  The last lines are the smoke's seconds, the
 kernels JSON, the card's name and power limit, and {"ok": true,
@@ -62,8 +80,11 @@ kernels JSON, the card's name and power limit, and {"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -150,6 +171,18 @@ GOLDEN_AZIMUTH = 600
 GOLDEN_SEED = 7
 GOLDEN_ODOM_GATE = 0.01      # m
 GOLDEN_YAW_GATE = 0.2        # deg
+
+# the offline command line (phase 8)
+OUT_DIR = ROOT / "smoke_out"   # gitignored
+CLI_SYNTH_F = 24
+CLI_BAG_F = 16
+CLI_BAG_AZIMUTH = 1800
+CLI_BAG_SEED = 13
+CLI_BAG_T0 = 100.0   # bag stamp of trajectory time 0
+CLI_BAG_PATH = ("select_walk", "knn_topk", "odom_corr", "knn_topk_dyn",
+                "knn_select")
+CKPT_EVERY = 4
+CKPT_SPLIT = 8       # frames before the interruption
 
 
 def replay_config(name: str):
@@ -694,12 +727,30 @@ def replay(name, raw_t, msk_t):
         lambda: pipeline.replay_sweeps(raw_t, msk_t, cfg))
 
 
+def imu_samples(pose_fn, t_end: float):
+    """The noise-free 200 Hz IMU stream of a trajectory from t=0 to
+    t_end: orientation (pitch, yaw, roll) straight from the trajectory,
+    body-frame coordinate acceleration from central differences (the
+    post-gravity-removal quantities of scanRegistration.cpp:643-647)."""
+    from loam_tpu_torch.io import synth
+
+    imu_t = np.arange(0.0, t_end, 1.0 / IMU_RATE)
+    h = 1e-3
+    rpy = np.zeros((imu_t.shape[0], 3))
+    acc = np.zeros((imu_t.shape[0], 3))
+    for i, t in enumerate(imu_t):
+        p = pose_fn(t)
+        rpy[i] = p[:3]  # (pitch, yaw, roll) == (rx, ry, rz)
+        a_w = (pose_fn(t + h)[3:6] - 2 * p[3:6] + pose_fn(t - h)[3:6]) / h**2
+        R, _ = synth._pose_matrix(p)
+        acc[i] = R.T @ a_w
+    return imu_t, rpy, acc
+
+
 def imu_sequence():
     """The raw sweeps of the golden IMU scenario and the noise-free IMU
-    stream of its trajectory: orientation straight from the trajectory,
-    body-frame coordinate acceleration from central differences (the
-    post-gravity-removal quantities of scanRegistration.cpp:643-647).
-    A NumPy copy of tests/test_golden_parity_imu._make_imu_sequence."""
+    stream of its trajectory (imu_samples).  A NumPy copy of
+    tests/test_golden_parity_imu._make_imu_sequence."""
     from loam_tpu_torch.io import synth
 
     world = synth.make_world(seed=IMU_SEED)
@@ -711,16 +762,7 @@ def imu_sequence():
               for k, t in enumerate(t_scans)]
     raw = np.stack([s[0] for s in sweeps])
     msk = np.stack([s[1] for s in sweeps])
-    imu_t = np.arange(0.0, float(t_scans[-1]) + 0.25, 1.0 / IMU_RATE)
-    h = 1e-3
-    rpy = np.zeros((imu_t.shape[0], 3))
-    acc = np.zeros((imu_t.shape[0], 3))
-    for i, t in enumerate(imu_t):
-        p = pose_fn(t)
-        rpy[i] = p[:3]  # (pitch, yaw, roll) == (rx, ry, rz)
-        a_w = (pose_fn(t + h)[3:6] - 2 * p[3:6] + pose_fn(t - h)[3:6]) / h**2
-        R, _ = synth._pose_matrix(p)
-        acc[i] = R.T @ a_w
+    imu_t, rpy, acc = imu_samples(pose_fn, float(t_scans[-1]) + 0.25)
     return (raw, msk, imu_t, rpy.astype(np.float32), acc.astype(np.float32),
             t_scans, pose_fn)
 
@@ -963,6 +1005,269 @@ def golden_phase(dev, card: str):
     return cells, hybrid
 
 
+def cli_verdict(stdout: str) -> dict:
+    """The golden_compare verdict line the CLI printed."""
+    found = [json.loads(line)["golden_compare"]
+             for line in stdout.splitlines()
+             if line.startswith('{"golden_compare"')]
+    if len(found) != 1:
+        raise AssertionError(f"no golden_compare verdict in:\n{stdout}")
+    return found[0]
+
+
+def cli_timing(stdout: str):
+    """The --report-timing lines and the replay's seconds."""
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith(("stage ", "replay "))]
+    replay = [ln.split() for ln in lines if ln.startswith("replay ")]
+    if len(replay) != 1:
+        raise AssertionError(f"no replay timing in:\n{stdout}")
+    return lines, float(replay[0][2]) / 1e3     # one replay: its mean ms
+
+
+def check_cli_outputs(out: Path, frames: int, cfg) -> tuple[int, int]:
+    """Three TUM files of `frames` finite poses, a map PLY with points,
+    and under clouds/ the files of the cadence rule: a registered cloud
+    every mapping frame, a surround cloud at each chunk's last frame.
+    Returns (map points, cloud files)."""
+    from loam_tpu_torch.io import export
+    from loam_tpu_torch.pipeline import mapping_frame
+
+    for name in ("odom", "aft_mapped", "integrated"):
+        t, pos, quat = export.load_trajectory_tum(str(out / f"{name}.tum"))
+        if t.shape != (frames,) or not (np.isfinite(pos).all()
+                                        and np.isfinite(quat).all()):
+            raise AssertionError(f"{out}/{name}.tum: {t.shape[0]} poses, "
+                                 f"finite: {np.isfinite(pos).all()}")
+    n_map = export.load_cloud_ply(str(out / "map_surround.ply")).shape[0]
+    if n_map <= 0:
+        raise AssertionError(f"{out}/map_surround.ply holds no point")
+    chunk = cfg.map_frame_num * (cfg.skip_frame_num + 1)
+    want = sorted(
+        [f"registered_{k:04d}.ply" for k in range(frames)
+         if mapping_frame(k, cfg)]
+        + [f"surround_{min(s + chunk, frames) - 1:04d}.ply"
+           for s in range(0, frames, chunk)])
+    got = sorted(p.name for p in (out / "clouds").iterdir())
+    if got != want:
+        raise AssertionError(f"{out}/clouds holds {got}, the cadence rule "
+                             f"gives {want}")
+    return n_map, len(got)
+
+
+def cli_synthetic_phase(card: str) -> None:
+    """`python -m loam_tpu_torch --synthetic 24` with the cloud streams,
+    the golden comparison and the timing report, as a subprocess."""
+    from loam_tpu_torch.config import LoamConfig
+
+    out = OUT_DIR / "cli_synth"
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "loam_tpu_torch", "--synthetic",
+           str(CLI_SYNTH_F), "--out-dir", str(out), "--stream-clouds",
+           "--golden-compare", "--report-timing"]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(
+            f"{' '.join(cmd[1:])} exited {done.returncode}:\n"
+            f"{done.stdout[-3000:]}\n{done.stderr[-5000:]}")
+    verdict = cli_verdict(done.stdout)
+    timing, replay_s = cli_timing(done.stdout)
+    n_map, n_clouds = check_cli_outputs(out, CLI_SYNTH_F, LoamConfig())
+    for line in timing:
+        print(f"cli synthetic timing: {line}", flush=True)
+    print(f"cli synthetic: {CLI_SYNTH_F} sweeps of 900 azimuths, replay "
+          f"{replay_s:.3f} s = {CLI_SYNTH_F / replay_s:.2f} frames/s (the "
+          f"first replay of its process); ATE vs golden oracle odometry "
+          f"{verdict['ate_odom_cm']} cm, aft-mapped {verdict['ate_aft_cm']}"
+          f" cm, integrated {verdict['ate_integrated_cm']} cm, pass "
+          f"{verdict['pass']}; {n_map} map points, {n_clouds} cloud files; "
+          f"the command took {seconds:.1f} s [{card}]", flush=True)
+    if not verdict["pass"]:
+        raise AssertionError(f"cli synthetic run failed its gate: {verdict}")
+
+
+def write_cli_bag(path: str) -> float:
+    """A bag of CLI_BAG_F full-density sweeps along the oscillating
+    trajectory (the valid points, firing order) and its 200 Hz IMU
+    stream as raw sensor_msgs/Imu messages: the quaternion of (roll,
+    pitch, yaw) and the velodyne-frame acceleration that imu_from_raw's
+    gravity removal and axis swap turn back into the trajectory's.
+    Returns the host seconds it took."""
+    from loam_tpu_torch.io import synth
+    from torch_parity import raw_imu, rpy_to_quat, write_sweep_bag
+
+    t0 = time.perf_counter()
+    world = synth.make_world(seed=CLI_BAG_SEED)
+    pose_fn = synth.oscillating_trajectory()
+    t_scans = IMU_T0 + 0.1 * np.arange(CLI_BAG_F)
+    sweeps = [synth.simulate_sweep_traj(world, pose_fn, t0=float(t),
+                                        n_azimuth=CLI_BAG_AZIMUTH,
+                                        seed=CLI_BAG_SEED + k)
+              for k, t in enumerate(t_scans)]
+    imu_t, pyr, acc = imu_samples(pose_fn, float(t_scans[-1]) + 0.25)
+    rpy, acc_velodyne = raw_imu(pyr, acc)
+    write_sweep_bag(path, sweeps, CLI_BAG_T0 + t_scans,
+                    (CLI_BAG_T0 + imu_t, rpy_to_quat(rpy), acc_velodyne))
+    return time.perf_counter() - t0
+
+
+def cli_bag_phase(dev, card: str):
+    """cli.main over the IMU bag in this process, its launches counted,
+    held to a replay_sweeps of the same loaded arrays and windows.
+    Returns (launch counts, the replay's inputs on the card)."""
+    from loam_tpu_torch import cli, pipeline
+    from loam_tpu_torch.io import export
+    from loam_tpu_torch.utils import tracing
+
+    out = OUT_DIR / "cli_bag"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    bag = str(out / "oscillating.bag")
+    made_s = write_cli_bag(bag)
+    argv = ["--bag", bag, "--skip", "0", "--knn-cadence", "fast",
+            "--stream-clouds", "--golden-compare", "--report-timing",
+            "--out-dir", str(out)]
+    tracing.reset()
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return cli.main(argv)
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # by the earlier phases
+    rc, counts, seconds = counted_replay("cli bag", CLI_BAG_PATH, (),
+                                         lambda: None, run)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    stdout = buf.getvalue()
+    print(stdout, end="", flush=True)
+    if rc != 0:
+        raise AssertionError(f"cli bag run returned {rc}")
+    verdict = cli_verdict(stdout)
+    _, replay_s = cli_timing(stdout)
+
+    # the same loaded arrays and IMU windows through replay_sweeps
+    args = cli.build_parser().parse_args(argv)
+    cfg = cli._config(args)
+    t0 = time.perf_counter()
+    raw, msk, stamps, imu = cli._load_data(args, cfg)
+    load_s = time.perf_counter() - t0
+    if imu is None or raw.shape[0] != CLI_BAG_F:
+        raise AssertionError(f"the bag gave {raw.shape[0]} sweeps, "
+                             f"IMU: {imu is not None}")
+    t, rpy, acc = imu
+    base = stamps[0]
+    streams = cli._window_imu(t - base, rpy, acc, stamps - base, cfg,
+                              device=dev)
+    t_scans = torch.as_tensor(stamps - base, dtype=torch.float32,
+                              device=dev)
+    ref = pipeline.replay_sweeps(raw, msk, cfg, streams, t_scans,
+                                 device=dev)
+    export.save_trajectory_tum(str(out / "in_process.tum"), stamps,
+                               ref.pose_integrated.cpu().numpy())
+    _, pos_cli, _ = export.load_trajectory_tum(str(out / "integrated.tum"))
+    _, pos_ref, _ = export.load_trajectory_tum(str(out / "in_process.tum"))
+    same = (out / "integrated.tum").read_bytes() == \
+        (out / "in_process.tum").read_bytes()
+    n_map, n_clouds = check_cli_outputs(out, CLI_BAG_F, cfg)
+    print(f"cli bag: {CLI_BAG_F} sweeps of {CLI_BAG_AZIMUTH} azimuths "
+          f"({int(msk.sum())} points) and {t.shape[0]} IMU messages, the "
+          f"bag written in {made_s:.2f} s and loaded in {load_s:.3f} s on "
+          f"the host; replay {replay_s:.3f} s = {CLI_BAG_F / replay_s:.2f} "
+          f"frames/s, cli.main {seconds:.3f} s with the oracle; ATE vs "
+          f"golden oracle odometry {verdict['ate_odom_cm']} cm, aft-mapped "
+          f"{verdict['ate_aft_cm']} cm, integrated "
+          f"{verdict['ate_integrated_cm']} cm, pass {verdict['pass']}; "
+          f"integrated.tum equals the in-process replay: {same} (largest "
+          f"gap {np.abs(pos_cli - pos_ref).max():.6f} m); {n_map} map "
+          f"points, {n_clouds} cloud files; peak device memory "
+          f"{peak:.1f} MiB above the {held / 2**20:.1f} MiB held before "
+          f"the run; launches {counts} [{card}]", flush=True)
+    failed = [what for ok, what in (
+        (verdict["pass"], f"golden verdict {verdict}"),
+        (same, "integrated.tum differs from the in-process replay"))
+        if not ok]
+    if failed:
+        raise AssertionError(f"cli bag run failed: {failed}")
+    return counts, (raw, msk, cfg, streams, t_scans)
+
+
+def checkpoint_phase(dev, card: str, bag_inputs) -> None:
+    """checkpointed_replay of the bag's features on the card, every
+    CKPT_EVERY frames: CKPT_SPLIT frames, then a new manager resumes
+    from the latest checkpoint; every pose must equal an uninterrupted
+    replay's bit for bit."""
+    from loam_tpu_torch import checkpoint as CK, pipeline
+    from loam_tpu_torch.ops.features import extract_features
+    from loam_tpu_torch.types import tree_map
+
+    raw, msk, cfg, streams, t_scans = bag_inputs
+    sweeps, imu_trans, map_rpy = pipeline.ingest_frames(
+        torch.as_tensor(raw, device=dev), torch.as_tensor(msk, device=dev),
+        cfg, streams, t_scans)
+    inputs = (extract_features(sweeps, cfg), imu_trans, map_rpy)
+
+    def step(state, frame):
+        feats, imu, rpy = frame
+        return pipeline.pipeline_step(state, feats, cfg, imu=imu,
+                                      map_rpy=rpy)
+
+    def timed(fn, times):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kw)
+            times.append(1e3 * (time.perf_counter() - t0))
+            return result
+        return call
+
+    root = OUT_DIR / "checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    whole_state, whole = CK.checkpointed_replay(
+        step, pipeline.PipelineState.create(cfg, dev), inputs,
+        CK.CheckpointManager(str(root / "whole")), every=0)
+    save_ms, restore_ms = [], []
+    first_ck = CK.CheckpointManager(str(root / "split"))
+    first_ck.save = timed(first_ck.save, save_ms)
+    _, first = CK.checkpointed_replay(
+        step, pipeline.PipelineState.create(cfg, dev),
+        tree_map(lambda t: t[:CKPT_SPLIT], inputs), first_ck,
+        every=CKPT_EVERY)
+    # a new manager over the same directory, as a restarted run opens it
+    ck = CK.CheckpointManager(str(root / "split"))
+    ck.save = timed(ck.save, save_ms)
+    ck.restore = timed(ck.restore, restore_ms)
+    resumed_state, rest = CK.checkpointed_replay(
+        step, pipeline.PipelineState.create(cfg, dev), inputs, ck,
+        every=CKPT_EVERY)
+    size = sum(p.stat().st_size
+               for p in (root / "split" / str(CKPT_SPLIT)).iterdir())
+    differ = [(k, name) for k, (got, want) in enumerate(zip(first + rest,
+                                                             whole))
+              for name in ("pose_odom", "pose_aft", "pose_integrated",
+                           "mapped")
+              if not torch.equal(getattr(got, name), getattr(want, name))]
+    leaves_a, leaves_b = [], []
+    tree_map(leaves_a.append, resumed_state)
+    tree_map(leaves_b.append, whole_state)
+    state_equal = all(torch.equal(a, b) for a, b in zip(leaves_a, leaves_b))
+    print(f"checkpoints: {CLI_BAG_F} frames every {CKPT_EVERY}, "
+          f"interrupted after {CKPT_SPLIT} and resumed at frame "
+          f"{CLI_BAG_F - len(rest)}; {len(save_ms)} saves of "
+          f"{size / 2**20:.1f} MiB, save ms "
+          f"{[round(x, 1) for x in save_ms]}, restore ms "
+          f"{[round(x, 1) for x in restore_ms]}; poses equal to the "
+          f"uninterrupted replay bit for bit: {not differ}, final state "
+          f"equal: {state_equal} [{card}]", flush=True)
+    if len(rest) != CLI_BAG_F - CKPT_SPLIT or differ or not state_equal:
+        raise AssertionError(f"resumed replay differs: frames {differ}, "
+                             f"state equal {state_equal}, {len(rest)} "
+                             "frames resumed")
+
+
 def print_rows(rows, card: str) -> None:
     for r in rows:
         for s in r["other_shapes"] + [r]:
@@ -1032,10 +1337,13 @@ def main() -> int:
     launches["imu"] = imu_phase(dev, card, imu)
     launches["batch"] = batch_phase(dev, card)
     launches["golden"], launches["golden hybrid"] = golden_phase(dev, card)
+    cli_synthetic_phase(card)
+    launches["cli bag"], bag_inputs = cli_bag_phase(dev, card)
+    checkpoint_phase(dev, card, bag_inputs)
 
     # the windowed k-NN runs at k=5 in the strict replay only and at k=8
     # in the hybrid ones; every other count sums over the replays
-    k8_runs = ("hybrid", "batch", "golden hybrid")
+    k8_runs = ("hybrid", "batch", "golden hybrid", "cli bag")
     for r in rows:
         if r["name"] == "knn_topk_dyn":
             r["launches"] = launches["default"]["knn_topk_dyn"]

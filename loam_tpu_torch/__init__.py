@@ -26,12 +26,12 @@ def configure_numerics() -> None:
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``None`` means the CUDA
-    device, and raises where there is none (never a silent CPU run)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    device.  A CUDA device raises where there is none (never a silent
+    CPU run)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "loam_tpu_torch runs on a CUDA device by default and "
-            "torch.cuda.is_available() is False; pass device=\"cpu\" to "
-            "run on the CPU")
-    return torch.device("cuda")
+            "torch.cuda.is_available() is False; pass device=\"cpu\" "
+            "(--device cpu on the command line) to run on the CPU")
+    return device

@@ -76,6 +76,9 @@ class MapOutput:
     pose_aft: torch.Tensor
     pose_bef: torch.Tensor
     solved: torch.Tensor
+    # /velodyne_cloud_registered (given `full` only): the full-res sweep
+    # in the map frame, masked points zeroed
+    registered: PointCloud | None = None
 
 
 def _hybrid(cfg: LoamConfig) -> bool:
@@ -346,7 +349,7 @@ def _downsample_cloud(cloud: PointCloud, leaf, cap):
 
 def mapping_step(state: MapState, pose_sum, corner_last: PointCloud,
                  surf_last: PointCloud, cfg: LoamConfig = LoamConfig(),
-                 imu_rpy=None):
+                 imu_rpy=None, full: PointCloud | None = None):
     """One mapping frame (src/laserMapping.cpp:408-1096) for one
     scenario, or for B in lockstep when the state, pose and clouds carry
     a leading B axis.  One scenario runs as the B=1 case of the batch.
@@ -355,18 +358,22 @@ def mapping_step(state: MapState, pose_sum, corner_last: PointCloud,
     time t_scan + scanPeriod (src/laserMapping.cpp:203-222) for the
     0.998/0.002 roll/pitch blend of transformUpdate; ok > 0.5 is the
     reference's imuPointerLast >= 0 guard.
+    full: None, or the odometry's end-projected full cloud; then
+    MapOutput.registered is that cloud moved into the map frame with the
+    refined pose (src/laserMapping.cpp:1060-1069).
     Returns (new_state, MapOutput)."""
     if state.transform_aft.dim() == 1:
         one = add_scenario_axis
         return drop_scenario_axis(_mapping_batch(
             one(state), pose_sum[None], one(corner_last), one(surf_last),
-            cfg, None if imu_rpy is None else imu_rpy[None]))
+            cfg, None if imu_rpy is None else imu_rpy[None], one(full)))
     return _mapping_batch(state, pose_sum, corner_last, surf_last, cfg,
-                          imu_rpy)
+                          imu_rpy, full)
 
 
 def _mapping_batch(state: MapState, pose_sum, corner_last: PointCloud,
-                   surf_last: PointCloud, cfg: LoamConfig, imu_rpy):
+                   surf_last: PointCloud, cfg: LoamConfig, imu_rpy,
+                   full: PointCloud | None = None):
     check_mapping_config(cfg)
     tobe = rotations.transform_associate_to_map(
         pose_sum, state.transform_bef, state.transform_aft)
@@ -422,6 +429,15 @@ def _mapping_batch(state: MapState, pose_sum, corner_last: PointCloud,
     surf_map = insert(surf_map, surf_stack, cfg.map_surf_leaf,
                       cfg.max_surf_stack)
 
+    # registered full-res cloud (src/laserMapping.cpp:1060-1069), one
+    # scenario at a time so that it rounds as that scenario's single
+    # replay does
+    registered = None
+    if full is not None:
+        reg_xyz = per_scenario(rotations.apply_pose, tobe, full.xyz)
+        registered = full.replace(
+            xyz=torch.where(full.mask[..., None], reg_xyz, 0.0))
+
     new_bef = torch.where(can_solve[:, None], pose_sum, state.transform_bef)
     new_aft = torch.where(can_solve[:, None], tobe, state.transform_aft)
     new_state = MapState(
@@ -430,7 +446,7 @@ def _mapping_batch(state: MapState, pose_sum, corner_last: PointCloud,
         local_map_overflow=state.local_map_overflow + overflow,
     )
     return new_state, MapOutput(pose_aft=new_aft, pose_bef=new_bef,
-                                solved=can_solve)
+                                solved=can_solve, registered=registered)
 
 
 def surround_cloud(state: MapState, cap: int = 65536) -> PointCloud:

@@ -20,7 +20,7 @@ from . import (configure_numerics, frontend, imu as imu_mod, mapping,
                odometry, resolve_device)
 from .config import LoamConfig
 from .ops.features import check_selection_config, extract_features
-from .types import (FeatureClouds, ImuTrans, add_scenario_axis,
+from .types import (FeatureClouds, ImuTrans, PointCloud, add_scenario_axis,
                     drop_scenario_axis, tree_map)
 from .utils import rotations
 
@@ -47,6 +47,9 @@ class FrameOutput:
     pose_aft: torch.Tensor         # (..., 6) /aft_mapped_to_init
     pose_integrated: torch.Tensor  # (..., 6) /integrated_to_init
     mapped: torch.Tensor           # (...,) bool: mapping ran this frame
+    # /velodyne_cloud_registered (cfg.emit_registered only): the full-res
+    # sweep in the map frame; mask all-False on frames without mapping
+    registered: PointCloud | None = None
 
 
 def mapping_frame(k: int, cfg: LoamConfig) -> bool:
@@ -59,10 +62,6 @@ def check_config(cfg: LoamConfig) -> None:
     fallback to another path)."""
     check_selection_config(cfg)
     mapping.check_mapping_config(cfg)
-    if cfg.emit_registered:
-        raise NotImplementedError(
-            "emit_registered (the registered-cloud export) is not ported "
-            "yet (ROADMAP.md, queue 1 item 9: cli.py)")
 
 
 def pipeline_step(state: PipelineState, feats: FeatureClouds,
@@ -97,26 +96,30 @@ def _step(state, feats, cfg, do_mapping, imu, map_rpy):
                 f"{n} of {publish.shape[0]} scenarios publish to mapping "
                 "at this frame: a batch must share the mapping cadence")
         do_mapping = n > 0
+    full = odom_out.full if cfg.emit_registered else None
     map_state = state.map
+    registered = None
     if do_mapping:
-        map_state, _ = mapping.mapping_step(
+        map_state, map_out = mapping.mapping_step(
             state.map, odom_out.pose, odom_out.corner_last,
-            odom_out.surf_last, cfg, imu_rpy=map_rpy)
+            odom_out.surf_last, cfg, imu_rpy=map_rpy, full=full)
+        registered = map_out.registered
+    elif full is not None:
+        registered = full.replace(xyz=torch.zeros_like(full.xyz),
+                                  mask=torch.zeros_like(full.mask))
     integrated = rotations.transform_associate_to_map(
         odom_out.pose, map_state.transform_bef, map_state.transform_aft)
     out = FrameOutput(
         pose_odom=odom_out.pose, pose_aft=map_state.transform_aft,
         pose_integrated=integrated, mapped=odom_out.publish_to_mapping,
+        registered=registered,
     )
     return PipelineState(odom=odom_state, map=map_state), out
 
 
 def _stack(outs):
     """Per-frame outputs (B, ...) as one FrameOutput (B, F, ...)."""
-    return FrameOutput(**{
-        f.name: torch.stack([getattr(o, f.name) for o in outs], 1)
-        for f in dataclasses.fields(FrameOutput)
-    })
+    return tree_map(lambda *ts: torch.stack(ts, 1), *outs)
 
 
 def replay_batch(feats: FeatureClouds, cfg: LoamConfig,

@@ -458,3 +458,28 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         KS.knn_select(torch.zeros(4, 8, 3, device=cuda),
                       torch.ones(4, 8, dtype=torch.bool, device=cuda),
                       torch.zeros(4, 3, device=cuda), 9)
+
+
+def test_cli_runs_on_card(cuda, tmp_path):
+    """The command line without --device runs on the card: four synthetic
+    sweeps with the cloud streams launch the kernels, and its
+    trajectories are those of a replay of the same sweeps on the card."""
+    from loam_tpu_torch import cli, pipeline
+    from loam_tpu_torch.io import export
+
+    argv = ["--synthetic", "4", "--ring-width", "512"]
+    before = SW.select_walk.launches, KN.knn_topk.launches
+    assert cli.main(argv + ["--out-dir", str(tmp_path), "--stream-clouds",
+                            "--report-timing"]) == 0
+    assert SW.select_walk.launches > before[0]
+    assert KN.knn_topk.launches > before[1]
+    assert sorted(p.name for p in (tmp_path / "clouds").iterdir()) == [
+        "registered_0001.ply", "registered_0003.ply", "surround_0003.ply"]
+    args = cli.build_parser().parse_args(argv)
+    cfg = dataclasses.replace(cli._config(args), emit_registered=True)
+    raw, msk, stamps, _ = cli._load_data(args, cfg)
+    outs = pipeline.replay_sweeps(raw, msk, cfg)
+    export.save_trajectory_tum(str(tmp_path / "ref.tum"), stamps,
+                               outs.pose_integrated.cpu().numpy())
+    assert (tmp_path / "integrated.tum").read_bytes() == \
+        (tmp_path / "ref.tum").read_bytes()

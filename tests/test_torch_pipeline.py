@@ -90,25 +90,32 @@ def test_metrics_match():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(cfg=dict(emit_registered=True)),
+    dict(argv=["--mode", "online"]),
+    dict(argv=["--live-port", "0"]),
+    dict(argv=["--viz"]),
 ])
-def test_unported_paths_raise(bad):
-    """Configurations outside the ported slice raise, naming their
-    ROADMAP.md item, before any work is done."""
-    cfg = to_port_cfg(dataclasses.replace(parity_cfg(),
-                                          **bad.get("cfg", {})))
-    raw = torch.zeros(1, 64, 3)
-    msk = torch.zeros(1, 64, dtype=torch.bool)
+def test_unported_paths_raise(bad, tmp_path):
+    """Options outside the ported slice raise, naming their ROADMAP.md
+    item, before any work is done (the command line's online mode, live
+    viewer and plots)."""
+    from loam_tpu_torch import cli
+
+    out = tmp_path / "out"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.replay_sweeps(raw, msk, cfg, device="cpu")
+        cli.main(["--synthetic", "1", "--device", "cpu", "--out-dir",
+                  str(out)] + bad["argv"])
+    assert not out.exists()
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     """Importing the port and replaying two frames, without and with an
-    IMU stream, and two scenarios in one batched replay, leaves jax and
-    loam_tpu out of sys.modules: the port keeps its own config and
-    synthetic sweeps (the machine with the card has no JAX)."""
+    IMU stream, two scenarios in one batched replay, and the command
+    line over a bag with an IMU stream, leaves jax and loam_tpu out of
+    sys.modules: the port keeps its own config, synthetic sweeps, bag
+    reader and exporters (the machine with the card has no JAX)."""
     fields = dataclasses.asdict(parity_cfg())
+    bag = str(tmp_path / "two.bag")
+    out_dir = str(tmp_path / "out")
     script = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {ROOT!r})
@@ -140,6 +147,21 @@ def test_port_runs_without_jax():
                                      device="cpu")
         assert outs.pose_integrated.shape == (2, 2, 6)
         assert torch.isfinite(outs.pose_integrated).all()
+        from torch_parity import rpy_to_quat, write_sweep_bag
+        from loam_tpu_torch import checkpoint, cli
+        from loam_tpu_torch.io import export, rosbag
+        t = np.arange(0.0, 0.3, 0.005)
+        rpy = np.zeros((t.size, 3))
+        acc = np.tile([0.0, 0.0, 9.81], (t.size, 1))
+        write_sweep_bag({bag!r}, list(zip(raw, msk)), 10.0 + t_scans,
+                        (10.0 + t, rpy_to_quat(rpy), acc))
+        raw_b, msk_b, stamps = rosbag.load_sweeps({bag!r})
+        assert raw_b.shape[0] == 2 and msk_b.sum() == msk.sum()
+        assert cli.main(["--bag", {bag!r}, "--skip", "0", "--device",
+                         "cpu", "--ring-width", "512", "--stream-clouds",
+                         "--out-dir", {out_dir!r}]) == 0
+        _, pos, _ = export.load_trajectory_tum({out_dir!r} + "/integrated.tum")
+        assert pos.shape == (2, 3) and np.isfinite(pos).all()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "loam_tpu"))
         print("FOREIGN_MODULES", bad)

@@ -4,7 +4,9 @@ imports neither jax nor loam_tpu (parity_cfg does, when called)."""
 
 from __future__ import annotations
 
+import bz2
 import dataclasses
+import struct
 
 import numpy as np
 import torch
@@ -306,3 +308,167 @@ def serial_walk(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
                 counts["picks"][i] += picks
                 counts["rounds"][i] += -(-steps // 32) + picks
     return tuple(fields), counts
+
+
+# ---- a minimal rosbag 2.0 writer (a copy of tests/test_rosbag.py's,
+# which imports loam_tpu), and the raw IMU messages of a trajectory
+
+def _field(name: bytes, value: bytes) -> bytes:
+    body = name + b"=" + value
+    return struct.pack("<I", len(body)) + body
+
+
+def _record(header_fields: dict, data: bytes) -> bytes:
+    hdr = b"".join(_field(k, v) for k, v in header_fields.items())
+    return struct.pack("<I", len(hdr)) + hdr + struct.pack("<I", len(data)) + data
+
+
+def _header_dict(fields: dict) -> bytes:
+    return b"".join(_field(k, v) for k, v in fields.items())
+
+
+def _std_header(stamp: float, frame: bytes = b"velodyne") -> bytes:
+    sec = int(stamp)
+    nsec = int(round((stamp - sec) * 1e9))
+    return (struct.pack("<I", 0) + struct.pack("<II", sec, nsec)
+            + struct.pack("<I", len(frame)) + frame)
+
+
+def pointcloud2(stamp, xyz, ring=None, rel=None) -> bytes:
+    """A sensor_msgs/PointCloud2 message body: x, y, z float32, optional
+    uint16 ring and float32 time fields."""
+    n = xyz.shape[0]
+    fields = [(b"x", 0, 7, 1), (b"y", 4, 7, 1), (b"z", 8, 7, 1)]
+    step = 12
+    if ring is not None:
+        fields.append((b"ring", step, 4, 1))  # UINT16
+        step += 2
+    if rel is not None:
+        fields.append((b"time", step, 7, 1))  # FLOAT32
+        step += 4
+    buf = bytearray(n * step)
+    for i in range(n):
+        o = i * step
+        struct.pack_into("<fff", buf, o, *xyz[i])
+        o += 12
+        if ring is not None:
+            struct.pack_into("<H", buf, o, int(ring[i]))
+            o += 2
+        if rel is not None:
+            struct.pack_into("<f", buf, o, float(rel[i]))
+    msg = _std_header(stamp)
+    msg += struct.pack("<II", 1, n)          # height, width
+    msg += struct.pack("<I", len(fields))
+    for name, off, dtype, cnt in fields:
+        msg += struct.pack("<I", len(name)) + name
+        msg += struct.pack("<IBI", off, dtype, cnt)
+    msg += struct.pack("<B", 0)              # is_bigendian
+    msg += struct.pack("<II", step, step * n)
+    msg += struct.pack("<I", len(buf)) + bytes(buf)
+    msg += struct.pack("<B", 1)              # is_dense
+    return msg
+
+
+def imu_message(stamp, quat, ang_vel, lin_acc) -> bytes:
+    """A sensor_msgs/Imu message body (zero covariances)."""
+    msg = _std_header(stamp, b"imu")
+    msg += struct.pack("<4d", *quat)
+    msg += struct.pack("<9d", *([0.0] * 9))
+    msg += struct.pack("<3d", *ang_vel)
+    msg += struct.pack("<9d", *([0.0] * 9))
+    msg += struct.pack("<3d", *lin_acc)
+    msg += struct.pack("<9d", *([0.0] * 9))
+    return msg
+
+
+def connection(conn_id, topic: bytes, typ: bytes) -> bytes:
+    data = _header_dict({
+        b"topic": topic, b"type": typ,
+        b"md5sum": b"0" * 32, b"message_definition": b"",
+    })
+    return _record(
+        {b"op": b"\x07", b"conn": struct.pack("<I", conn_id),
+         b"topic": topic},
+        data,
+    )
+
+
+def message(conn_id, stamp, payload: bytes) -> bytes:
+    sec = int(stamp)
+    nsec = int(round((stamp - sec) * 1e9))
+    return _record(
+        {b"op": b"\x02", b"conn": struct.pack("<I", conn_id),
+         b"time": struct.pack("<II", sec, nsec)},
+        payload,
+    )
+
+
+def write_bag(path, messages, compression=b"none"):
+    """messages: list of (conn_records, msg_records) flattened bytes that
+    go inside one chunk."""
+    chunk_body = b"".join(messages)
+    if compression == b"bz2":
+        comp = bz2.compress(chunk_body)
+    else:
+        comp = chunk_body
+    with open(path, "wb") as f:
+        f.write(b"#ROSBAG V2.0\n")
+        f.write(_record(
+            {b"op": b"\x03",
+             b"index_pos": struct.pack("<Q", 0),
+             b"conn_count": struct.pack("<I", 2),
+             b"chunk_count": struct.pack("<I", 1)},
+            b" " * 4096,
+        ))
+        f.write(_record(
+            {b"op": b"\x05", b"compression": compression,
+             b"size": struct.pack("<I", len(chunk_body))},
+            comp,
+        ))
+
+
+def write_sweep_bag(path, sweeps, stamps, imu=None):
+    """A bag of lidar sweeps on /velodyne_points (each (xyz, mask); the
+    valid points only, without ring or time fields) and, given imu =
+    (t, quat xyzw, lin_acc), the IMU stream on /imu/data."""
+    recs = [connection(0, b"/velodyne_points", b"sensor_msgs/PointCloud2")]
+    if imu is not None:
+        recs.append(connection(1, b"/imu/data", b"sensor_msgs/Imu"))
+    for (xyz, m), stamp in zip(sweeps, stamps):
+        recs.append(message(0, float(stamp),
+                            pointcloud2(float(stamp), xyz[m])))
+    if imu is not None:
+        for t, q, a in zip(*imu):
+            recs.append(message(1, float(t), imu_message(
+                float(t), q, [0.0, 0.0, 0.0], a)))
+    write_bag(path, recs)
+
+
+def rpy_to_quat(rpy):
+    """(M, 3) (roll, pitch, yaw) -> (M, 4) xyzw, the ZYX quaternion that
+    rosbag.quat_to_rpy decodes back (|pitch| < pi/2)."""
+    h = np.asarray(rpy, np.float64) / 2
+    cr, sr = np.cos(h[:, 0]), np.sin(h[:, 0])
+    cp, sp = np.cos(h[:, 1]), np.sin(h[:, 1])
+    cy, sy = np.cos(h[:, 2]), np.sin(h[:, 2])
+    return np.stack([sr * cp * cy - cr * sp * sy,
+                     cr * sp * cy + sr * cp * sy,
+                     cr * cp * sy - sr * sp * cy,
+                     cr * cp * cy + sr * sp * sy], -1)
+
+
+def raw_imu(pyr, acc_int, g: float = 9.81):
+    """The raw sensor_msgs/Imu content of internal-frame IMU samples:
+    pyr (M, 3) (pitch, yaw, roll) and acc_int (M, 3) the gravity-removed
+    internal-frame acceleration -> (roll, pitch, yaw) and the
+    velodyne-frame acceleration, inverting imu_from_raw's gravity
+    removal and axis swap (src/scanRegistration.cpp:638-652)."""
+    pyr = np.asarray(pyr, np.float64)
+    acc_int = np.asarray(acc_int, np.float64)
+    pitch, yaw, roll = pyr[:, 0], pyr[:, 1], pyr[:, 2]
+    acc = np.stack([
+        acc_int[:, 2] - np.sin(pitch) * g,
+        acc_int[:, 0] + np.sin(roll) * np.cos(pitch) * g,
+        acc_int[:, 1] + np.cos(roll) * np.cos(pitch) * g,
+    ], -1)
+    return np.stack([roll, pitch, yaw], -1), acc
