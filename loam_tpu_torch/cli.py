@@ -1,5 +1,5 @@
-"""Command-line launcher, the offline branch (counterpart of
-loam_tpu/cli.py; the roslaunch equivalent, SURVEY.md §2 C19).
+"""Command-line launcher (counterpart of loam_tpu/cli.py; the roslaunch
+equivalent, SURVEY.md §2 C19).
 
 The reference is started with `roslaunch loam_velodyne loam_velodyne.launch`
 plus `rosbag play` (README.md:27-32 in the reference); the hector variant
@@ -7,20 +7,26 @@ only remaps the IMU topic (launch/hector_loam_velodyne.launch:6-8).
 Standalone, on the CUDA device unless --device says otherwise:
 
     python -m loam_tpu_torch --bag nsh_indoor_outdoor.bag --out-dir out/
+    python -m loam_tpu_torch --bag X.bag --mode online  # streaming engine
     python -m loam_tpu_torch --synthetic 32 --out-dir out/   # no data needed
     python -m loam_tpu_torch --synthetic 3 --ring-width 512 --device cpu
 
 Outputs: TUM trajectories for every stage (`odom.tum`, `aft_mapped.tum`,
 `integrated.tum` — the three pose topics) and a PLY of the final map
-(the /laser_cloud_surround equivalent).  The online mode (the streaming
-engine) and the viewers are not ported yet and raise, naming their
-ROADMAP.md item.
+(the /laser_cloud_surround equivalent); `--viz` adds `viz.png` and
+`viewer.html`.  `--mode online` feeds the sweeps, with the IMU samples
+interleaved ahead of each, through the threaded streaming engine and
+writes its integrated trajectory; `--live-port` serves its live viewer.
+A recorded bag has no deadline, so the online loop hands the engine the
+next sweep once it has finished the last (the JAX command line pushes
+them all at once, and its engine drops what its queues cannot hold).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import os
 import sys
 import time
@@ -48,8 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", choices=("offline", "online"),
                    default="offline",
                    help="offline: batch replay; online: threaded "
-                        "streaming engine with lossy queues (not ported "
-                        "yet)")
+                        "streaming engine with lossy queues")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the CUDA "
                         "device, an error without one); 'cpu' runs every "
@@ -76,11 +81,14 @@ def build_parser() -> argparse.ArgumentParser:
              "as PLY streams under OUT_DIR/clouds/",
     )
     p.add_argument("--viz", action="store_true",
-                   help="write viz.png + viewer.html (not ported yet)")
+                   help="offline mode: write viz.png + viewer.html (the "
+                        "rviz displays: map surround, trajectories); needs "
+                        "matplotlib")
     p.add_argument(
         "--live-port", type=int, default=-1,
-        help="online mode: serve the live viewer on this port (not "
-             "ported yet); -1 disables",
+        help="online mode: serve the LIVE viewer (rviz equivalent — "
+             "pose trail + ~1 Hz map surround over HTTP polling) on "
+             "this port (0 = auto-pick); -1 disables",
     )
     p.add_argument(
         "--golden-compare", action="store_true",
@@ -97,20 +105,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_args(args) -> None:
-    """Refuse the options outside the ported slice, before any work
-    (never a silent fallback to another path)."""
-    if args.mode == "online":
-        raise NotImplementedError(
-            "--mode online (the streaming engine) is not ported yet "
-            "(ROADMAP.md, queue 1 item 9: runtime/streaming.py)")
-    if args.live_port >= 0:
-        raise NotImplementedError(
-            "--live-port (the live viewer of the streaming engine) is not "
-            "ported yet (ROADMAP.md, queue 1 item 9: runtime/streaming.py)")
+    """Refuse, before any work, an option its mode does not run or a
+    missing dependency (never a silent fallback to another path)."""
+    if args.golden_compare and args.mode != "offline":
+        raise ValueError("--golden-compare holds the offline replay to the "
+                         "oracle: it needs --mode offline")
+    if args.live_port >= 0 and args.mode != "online":
+        raise ValueError("--live-port serves the streaming engine's live "
+                         "viewer: it needs --mode online")
     if args.viz:
-        raise NotImplementedError(
-            "--viz is not ported yet (ROADMAP.md, queue 1 item 9: viz.py "
-            "and viz_live.py)")
+        if args.mode != "offline":
+            raise ValueError("--viz draws the offline replay: it needs "
+                             "--mode offline (--live-port is the online "
+                             "viewer)")
+        if importlib.util.find_spec("matplotlib") is None:
+            raise RuntimeError("--viz needs matplotlib, which is not "
+                               "installed: install it or leave out --viz")
 
 
 def _config(args):
@@ -182,6 +192,9 @@ def main(argv=None) -> int:
           f"imu={'yes' if imu is not None else 'no'}, device={device}",
           flush=True)
 
+    if args.mode == "online":
+        return _online(args, cfg, raw, mask, stamps, imu, device)
+
     if args.stream_clouds:
         cfg = dataclasses.replace(cfg, emit_registered=True)
     streams = None
@@ -223,6 +236,8 @@ def main(argv=None) -> int:
     export.save_cloud_ply(
         os.path.join(args.out_dir, "map_surround.ply"), map_xyz, map_live
     )
+    if args.viz:
+        _viz(args, outs, map_xyz, map_live, F)
     print(f"[{PROG}] wrote {args.out_dir}/{{odom,aft_mapped,integrated}}"
           f".tum ({F} poses) + map_surround.ply "
           f"({int(map_live.sum())} pts)", flush=True)
@@ -230,6 +245,76 @@ def main(argv=None) -> int:
     if args.golden_compare:
         return _golden_compare(args, cfg, raw, mask, stamps, imu, outs)
     return 0
+
+
+def _online(args, cfg, raw, mask, stamps, imu, device) -> int:
+    """The streaming engine over the loaded sweeps, IMU samples pushed
+    ahead of the sweep they cover as the live subscriptions would
+    deliver them, each sweep once the engine has finished the last;
+    writes the integrated trajectory."""
+    from .io import export
+    from .runtime.streaming import StreamingEngine
+
+    if args.live_port >= 0 or args.stream_clouds:
+        # the live viewer's 4th rviz display (/velodyne_cloud_registered)
+        # needs the engine to thread the full-res cloud through mapping
+        cfg = dataclasses.replace(cfg, emit_registered=True)
+    eng = StreamingEngine(cfg, device=device)
+    eng.start()
+    live = None
+    try:
+        if args.live_port >= 0:
+            from .viz_live import LiveServer
+
+            live = LiveServer(eng, port=args.live_port).start()
+            print(f"[{PROG}] live viewer at {live.url}", flush=True)
+        F = raw.shape[0]
+        t0 = time.perf_counter()
+        t_base = stamps[0]
+        imu_cursor = 0
+        for k in range(F):
+            t_scan = float(stamps[k] - t_base)
+            if imu is not None:
+                it, irpy, iacc = imu
+                horizon = t_scan + cfg.scan_period + 0.05
+                while imu_cursor < it.shape[0] and \
+                        it[imu_cursor] - t_base <= horizon:
+                    eng.push_imu(it[imu_cursor] - t_base, irpy[imu_cursor],
+                                 iacc[imu_cursor])
+                    imu_cursor += 1
+            eng.push_sweep(raw[k], mask[k], t_scan)
+            eng.drain(timeout_s=600)
+        eng.drain(timeout_s=600)
+        dt = time.perf_counter() - t0
+        st = eng.stats()
+        traj = eng.trajectory()
+    finally:
+        if live is not None:
+            live.stop()
+        eng.stop()
+    print(f"[{PROG}] online: {st.odom_frames} odometry frames, "
+          f"{st.map_frames} mapping frames, "
+          f"{st.queue_stats['raw']['dropped']} dropped, "
+          f"{F / dt:.1f} sweeps/s", flush=True)
+    export.save_trajectory_tum(
+        os.path.join(args.out_dir, "integrated.tum"),
+        stamps[: traj.shape[0]], traj,
+    )
+    return 0
+
+
+def _viz(args, outs, map_xyz, map_live, F: int) -> None:
+    """viz.png (the four rviz displays) and viewer.html of the replay."""
+    from . import viz
+
+    trajs = {"integrated": outs.pose_integrated,
+             "aft_mapped": outs.pose_aft, "odom": outs.pose_odom}
+    viz.plot_dashboard(os.path.join(args.out_dir, "viz.png"), trajs,
+                       map_xyz=map_xyz, map_mask=map_live,
+                       title=f"{PROG} — {F} sweeps")
+    viz.export_html_viewer(os.path.join(args.out_dir, "viewer.html"), trajs,
+                           clouds={"map_surround": (map_xyz, map_live)})
+    print(f"[{PROG}] wrote {args.out_dir}/viz.png, viewer.html", flush=True)
 
 
 def _golden_compare(args, cfg, raw, mask, stamps, imu, outs) -> int:

@@ -11,7 +11,10 @@ Conventions (internal frame: x left, y up, z forward): the IMU
 world-from-body rotation is R = Ry(yaw) @ Rx(pitch) @ Rz(roll), and
 angle triples are stored as (pitch, yaw, roll) == (rx, ry, rz), the
 layout of the imuTrans message.  Validity is always a torch.where: no
-host read per sample or per point.
+host read per sample or per point.  Every rotation product is the
+fixed-order elementwise form of utils/rotations (mat_vec, vec_mat,
+r_yxz_fixed), so one sweep rounds as a batch of frames does: the
+streaming engine's frontend as the replay's, on the card too.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from .config import LoamConfig
 from .types import ImuTrans, _map_fields
 from .utils.numerics import cumsum
-from .utils.rotations import r_yxz
+from .utils.rotations import mat_vec, r_yxz_fixed, vec_mat
 
 _BIG_TIME = 1e18
 
@@ -92,11 +95,6 @@ class ImuIntegral:
     shift: torch.Tensor  # (..., M, 3)
 
 
-def _rotate(R, v):
-    """R @ v over leading axes: R (..., 3, 3), v (..., 3)."""
-    return (R @ v[..., None])[..., 0]
-
-
 def integrate(stream: ImuStream, cfg: LoamConfig = LoamConfig()
               ) -> ImuIntegral:
     """AccumulateIMUShift over the whole window
@@ -104,7 +102,7 @@ def integrate(stream: ImuStream, cfg: LoamConfig = LoamConfig()
     constant acceleration per interval.  An interval with dt >=
     scanPeriod (a gap), or an invalid sample on either side, contributes
     nothing: velocity and position freeze across it."""
-    acc_w = _rotate(r_yxz(stream.rpy), stream.acc)
+    acc_w = mat_vec(r_yxz_fixed(stream.rpy), stream.acc)
     t, mask = stream.t, stream.mask
     dt = torch.diff(t, dim=-1, prepend=t[..., :1])
     prev_valid = torch.cat([torch.zeros_like(mask[..., :1]),
@@ -227,13 +225,13 @@ def sweep_state(stream: ImuStream, integ: ImuIntegral, t_scan, rel_time,
     pt_time = (tq - t0q)[..., None]
     drift_w = (shift_pt - shift_start[..., None, :]
                - velo_start[..., None, :] * pt_time)
-    R_start = r_yxz(rpy_start)
-    shift_from_start = drift_w @ R_start
+    R_start = r_yxz_fixed(rpy_start)
+    shift_from_start = vec_mat(drift_w, R_start)
 
     il = torch.argmax(torch.where(flat_mask, rel, -math.inf), -1)
     velo_last = _take(velo_pt, il)
-    velo_from_start_last = ((velo_last - velo_start)[..., None, :]
-                            @ R_start)[..., 0, :]
+    velo_from_start_last = vec_mat((velo_last - velo_start)[..., None, :],
+                                   R_start)[..., 0, :]
     return SweepImu(
         rpy_start=rpy_start,
         rpy_pt=rpy_pt.reshape(lead + pshape + (3,)),
@@ -257,8 +255,9 @@ def deskew_points(xyz, sweep_imu: SweepImu):
     146-171): p <- R_start^T @ R_cur @ p + shiftFromStart, which removes
     the non-constant-velocity motion over the sweep.  xyz (..., *P, 3)."""
     lead = sweep_imu.rpy_start.shape[:-1]
-    p_w = _rotate(r_yxz(sweep_imu.rpy_pt), xyz)
-    p_start = p_w.reshape(lead + (-1, 3)) @ r_yxz(sweep_imu.rpy_start)
+    p_w = mat_vec(r_yxz_fixed(sweep_imu.rpy_pt), xyz)
+    p_start = vec_mat(p_w.reshape(lead + (-1, 3)),
+                      r_yxz_fixed(sweep_imu.rpy_start))
     return p_start.reshape(xyz.shape) + sweep_imu.shift_from_start
 
 

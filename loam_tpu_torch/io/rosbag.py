@@ -10,7 +10,9 @@ module packs the messages into the padded arrays the pipeline consumes.
 The native library is built from the sources at first use, with the
 flags of native/Makefile, into the gitignored loam_tpu_torch/_build/,
 keyed by a hash of the sources: nothing is written beside them, and an
-edited source rebuilds.
+edited source rebuilds.  It also holds the streaming engine's queues
+(native/runtime.cc, the loam_q_* functions).  Building and loading are
+safe from several threads and processes.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -33,6 +36,7 @@ CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared")
 LINK_FLAGS = ("-ldl", "-lpthread")
 
 _lib = None
+_LOAD_LOCK = threading.Lock()
 
 
 def library_path() -> Path:
@@ -45,13 +49,13 @@ def library_path() -> Path:
 
 def _build() -> Path:
     """Compile the native sources unless the library is current.  Several
-    processes may build at once: each writes its own temporary file and
-    renames it into place."""
+    processes and threads may build at once: each writes its own
+    temporary file and renames it into place."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
            *(str(NATIVE_DIR / n) for n in NATIVE_SOURCES), *LINK_FLAGS]
     done = subprocess.run(cmd, capture_output=True, text=True)
@@ -64,11 +68,18 @@ def _build() -> Path:
 
 
 def _load():
-    """Build (if needed) and load the native library."""
+    """Build (if needed) and load the native library, once, under a
+    lock; every signature is declared here."""
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(_build()))
+    with _LOAD_LOCK:
+        if _lib is None:
+            _lib = _declared(ctypes.CDLL(str(_build())))
+    return _lib
+
+
+def _declared(lib):
     lib.loam_bag_open.restype = ctypes.c_void_p
     lib.loam_bag_open.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int
@@ -94,7 +105,21 @@ def _load():
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
         ctypes.c_long,
     ]
-    _lib = lib
+    # the streaming engine's drop-oldest handle queues
+    lib.loam_q_create.restype = ctypes.c_void_p
+    lib.loam_q_create.argtypes = [ctypes.c_long]
+    lib.loam_q_push.restype = ctypes.c_int
+    lib.loam_q_push.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64),
+    ]
+    lib.loam_q_pop.restype = ctypes.c_int
+    lib.loam_q_pop.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64), ctypes.c_long,
+    ]
+    lib.loam_q_close.argtypes = [ctypes.c_void_p]
+    lib.loam_q_stats.argtypes = [ctypes.c_void_p] + [
+        ctypes.POINTER(ctypes.c_uint64)] * 4
+    lib.loam_q_destroy.argtypes = [ctypes.c_void_p]
     return lib
 
 

@@ -39,3 +39,10 @@ def rpe_rmse(est_pos, gt_pos, delta: int = 1) -> float:
     err = (est[delta:] - est[:-delta]) - (gt[delta:] - gt[:-delta])
     return float(np.sqrt(np.mean(np.sum(err * err, axis=1))))
 
+
+def trajectory_positions(pose6_seq):
+    """(F, 3) positions of (F, 6) [r, t] poses (any leading axes), as
+    the caller's type: a tensor stays a tensor."""
+    if isinstance(pose6_seq, torch.Tensor):
+        return pose6_seq[..., 3:6]
+    return np.asarray(pose6_seq)[..., 3:6]

@@ -6,17 +6,21 @@ ctypes.  Libraries are keyed by a hash of their source and of every
 shared header (``csrc/*.cuh``), so an edited kernel or header rebuilds
 and an unchanged one loads from ``_build/``.  Nothing
 is built at import: the first launch builds (or ``build_all`` builds
-every kernel in parallel, one nvcc per source).
+every kernel in parallel, one nvcc per source).  Building and loading
+are safe from several threads (the streaming engine's stages) and
+processes: each build writes a temporary file named by process and
+thread and renames it into place, and one lock guards the loaded
+entry points.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -58,7 +62,7 @@ def _start(name: str):
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -84,15 +88,27 @@ def build_all(names=KERNEL_SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-@functools.cache
+_ENTRIES: dict = {}
+_ENTRY_LOCK = threading.Lock()
+
+
 def entry(name: str, argtypes: tuple):
     """The C entry point ``<name>_launch`` of csrc/<name>.cu, built if
     needed, with its signature declared (pointers and the stream as
-    c_void_p) and an int cudaError_t result."""
-    _finish(name, _start(name))
-    fn = getattr(ctypes.CDLL(str(library_path(name))), f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = list(argtypes)
+    c_void_p) and an int cudaError_t result.  The first call builds and
+    loads under a lock; later calls only look it up."""
+    key = (name, argtypes)
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        with _ENTRY_LOCK:
+            fn = _ENTRIES.get(key)
+            if fn is None:
+                _finish(name, _start(name))
+                fn = getattr(ctypes.CDLL(str(library_path(name))),
+                             f"{name}_launch")
+                fn.restype = ctypes.c_int
+                fn.argtypes = list(argtypes)
+                _ENTRIES[key] = fn
     return fn
 
 

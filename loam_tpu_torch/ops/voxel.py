@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.numerics import cumsum
 from .compact import compact_masked
 
 _BIAS = 1 << 15
@@ -104,7 +105,11 @@ def voxel_downsample(xyz, mask, leaf, out_cap, extra=None):
     if extra is None:
         out_extra = torch.zeros(ok.shape, dtype=xyz.dtype, device=xyz.device)
     else:
-        # centred on each segment's first value, as the JAX code does
+        # centred on each segment's first value, as the JAX code does;
+        # the fixed-order scan of numerics.cumsum, because the card's
+        # innermost-axis cumsum groups its additions by the number of rows
+        # (rings x frames x scenarios), and one scenario's voxel times must
+        # not depend on how many others ride along
         seg = torch.cumsum(newseg.to(torch.int64), -1) - 1
         first = torch.gather(ex_s, -1, p0)
         exv = torch.where(
@@ -112,7 +117,7 @@ def voxel_downsample(xyz, mask, leaf, out_cap, extra=None):
             ex_s - torch.gather(first, -1, seg.clamp(0, out_cap - 1)),
             0.0,
         )
-        ecs = torch.cumsum(exv, -1)
+        ecs = cumsum(exv, -1)
         ex_sum = (torch.gather(ecs, -1, p1) - torch.gather(ecs, -1, p0)
                   + torch.gather(exv, -1, p0))
         out_extra = torch.where(ok, first + ex_sum / denom, 0.0)

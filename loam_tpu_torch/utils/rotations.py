@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..types import per_scenario
+from .numerics import seq_sum
 
 
 def _rot(a, rows):
@@ -44,6 +45,31 @@ def drot_y(a):
 
 def drot_z(a):
     return _rot(a, (("-s", "-c", "z"), ("c", "-s", "z"), ("z", "z", "z")))
+
+
+def mat_vec(M, v):
+    """M @ v for M (..., 3, 3) and v (..., 3) with the same leading
+    axes, as one fixed-order elementwise expression
+    ((M[:, 0] v0 + M[:, 1] v1) + M[:, 2] v2).  A batched matrix product
+    picks its kernel, and so its order of additions, from the leading
+    shape (cuBLAS on the card, mm against bmm on the CPU); this one
+    rounds alike for one sweep and for a batch of them."""
+    return seq_sum(M * v[..., None, :], -1)
+
+
+def vec_mat(v, M):
+    """v @ M for row vectors v (..., N, 3) and M (..., 3, 3) with the
+    same leading axes, in the fixed order of mat_vec."""
+    return seq_sum(v[..., :, None] * M[..., None, :, :], -2)
+
+
+def r_yxz_fixed(angles):
+    """r_yxz with its two 3x3 products in the fixed order of mat_vec:
+    what a batched r_yxz gives on the CPU, for one rotation as for many
+    and on any device (the IMU frontend's, so that one sweep rounds as a
+    batch of frames does)."""
+    rx, ry, rz = angles[..., 0], angles[..., 1], angles[..., 2]
+    return vec_mat(vec_mat(rot_y(ry), rot_x(rx)), rot_z(rz))
 
 
 def r_yxz(angles):
@@ -93,3 +119,36 @@ def apply_pose(pose6, points):
     pose6 (..., 6) and points (..., N, 3) with the same leading axes."""
     R = r_yxz(pose6[..., :3])
     return points @ R.mT + pose6[..., None, 3:]
+
+
+def apply_pose_inverse(pose6, points):
+    """pointAssociateTobeMapped (src/laserMapping.cpp:254-272): body
+    point R^T (p - t) for pose6 (..., 6) and points (..., N, 3) with the
+    same leading axes."""
+    R = r_yxz(pose6[..., :3])
+    return (points - pose6[..., None, 3:]) @ R
+
+
+def rpy_quaternion_wxyz(roll, pitch, yaw):
+    """tf::createQuaternionMsgFromRollPitchYaw (ZYX convention: q =
+    Rz(yaw) Ry(pitch) Rx(roll)) as (..., 4) [w, x, y, z]; used only at
+    the output boundary (src/laserOdometry.cpp:858,
+    src/laserMapping.cpp:1071)."""
+    cr, sr = torch.cos(roll / 2), torch.sin(roll / 2)
+    cp, sp = torch.cos(pitch / 2), torch.sin(pitch / 2)
+    cy, sy = torch.cos(yaw / 2), torch.sin(yaw / 2)
+    w = cr * cp * cy + sr * sp * sy
+    x = sr * cp * cy - cr * sp * sy
+    y = cr * sp * cy + sr * cp * sy
+    z = cr * cp * sy - sr * sp * cy
+    return torch.stack([w, x, y, z], -1)
+
+
+def pose6_to_matrix(pose6):
+    """(..., 4, 4) homogeneous world-from-body matrix of a [r, t] pose."""
+    M = torch.zeros(pose6.shape[:-1] + (4, 4), dtype=pose6.dtype,
+                    device=pose6.device)
+    M[..., :3, :3] = r_yxz(pose6[..., :3])
+    M[..., :3, 3] = pose6[..., 3:]
+    M[..., 3, 3] = 1.0
+    return M

@@ -483,3 +483,96 @@ def test_cli_runs_on_card(cuda, tmp_path):
                                outs.pose_integrated.cpu().numpy())
     assert (tmp_path / "integrated.tum").read_bytes() == \
         (tmp_path / "ref.tum").read_bytes()
+
+
+def _engine_case(imu: bool):
+    """Six sweeps of 480 azimuths (straight, or along the oscillating
+    trajectory with its raw 200 Hz IMU) and the configuration of the
+    replay tests above."""
+    from torch_parity import imu_samples, raw_imu
+    from loam_tpu_torch.io import synth
+
+    cfg = dataclasses.replace(
+        LoamConfig(), ring_width=512, max_less_flat=2048,
+        less_flat_ring_cap=256, corner_table_size=1 << 12,
+        surf_table_size=1 << 13, search_buckets=1 << 10,
+        max_corner_from_map=1024, max_surf_from_map=2048,
+        max_corner_stack=512, max_surf_stack=1024)
+    world = synth.make_world(seed=11)
+    t_scans = 0.06 + 0.1 * np.arange(6)
+    if imu:
+        pose_fn = synth.oscillating_trajectory()
+        sweeps = [synth.simulate_sweep_traj(world, pose_fn, t0=float(t),
+                                            n_azimuth=480, seed=11 + k)
+                  for k, t in enumerate(t_scans)]
+        imu_t, pyr, acc = imu_samples(pose_fn, float(t_scans[-1]) + 0.25)
+        samples = (imu_t,) + raw_imu(pyr, acc)
+    else:
+        poses = synth.straight_trajectory(6, speed=0.9, yaw_rate=0.12)
+        poses = np.vstack([poses[:1], poses])[:7]
+        sweeps = [synth.simulate_sweep(world, poses[i], poses[i + 1],
+                                       n_azimuth=480, seed=11 + i)
+                  for i in range(6)]
+        samples = None
+    raw = np.stack([s[0] for s in sweeps]).astype(np.float32)
+    msk = np.stack([s[1] for s in sweeps])
+    return cfg, raw, msk, t_scans, samples
+
+
+@pytest.mark.parametrize("imu", [False, True])
+def test_streaming_engine_equals_replay_on_card(cuda, imu):
+    """A paced engine run on the card (its stages launch the kernels
+    from three threads) equals the card's replay of the same sweeps and
+    IMU windows bit for bit, by the engine's integration rule: the
+    frontend of one sweep rounds as the replay's frame batch does."""
+    from loam_tpu_torch import imu as imu_mod
+    from loam_tpu_torch.runtime.streaming import StreamingEngine
+    from torch_parity import (masked_imu_windows, online_rule_replay,
+                              paced_engine_run)
+
+    cfg, raw, msk, t_scans, samples = _engine_case(imu)
+    wrappers = (KN.knn_topk, KN.knn_topk_dyn, OC.odom_corr, SW.select_walk)
+    before = [fn.launches for fn in wrappers]
+    eng = StreamingEngine(cfg)                  # the default device
+    assert eng.device.type == "cuda"
+    eng.start()
+    try:
+        odom, aft, integrated = paced_engine_run(eng, raw, msk, t_scans,
+                                                 samples)
+        windows = [eng._imu_window(float(t)) for t in t_scans]
+    finally:
+        eng.stop()
+    assert all(fn.launches > b for fn, b in zip(wrappers, before))
+    if imu:
+        streams = imu_mod.imu_from_raw(*(
+            torch.tensor(np.stack([w[i] for w in windows]), device=cuda)
+            for i in range(4)))
+    else:
+        streams = masked_imu_windows(len(t_scans), device=cuda)
+    t_t = torch.tensor(t_scans.astype(np.float32), device=cuda)
+    ref, online = online_rule_replay(raw, msk, cfg, cuda, streams, t_t)
+    np.testing.assert_array_equal(odom, ref.pose_odom.cpu().numpy())
+    np.testing.assert_array_equal(aft, ref.pose_aft.cpu().numpy())
+    np.testing.assert_array_equal(integrated, online.cpu().numpy())
+
+
+def test_streaming_engine_sheds_load_on_card(cuda):
+    """Thirty sweeps with no pacing: the oldest are dropped and every
+    sweep is accounted for."""
+    from loam_tpu_torch.runtime.streaming import StreamingEngine
+
+    cfg, raw, msk, _, _ = _engine_case(False)
+    eng = StreamingEngine(cfg)
+    eng.start()
+    try:
+        eng.push_sweep(raw[0], msk[0])
+        assert eng.drain(timeout_s=120)
+        for k in range(30):
+            eng.push_sweep(raw[k % 6], msk[k % 6])
+        assert eng.drain(timeout_s=300)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    q = st.queue_stats
+    assert st.frames_in == 31 and q["raw"]["dropped"] > 0
+    assert st.odom_frames + q["raw"]["dropped"] + q["feats"]["dropped"] == 31

@@ -91,28 +91,61 @@ def test_metrics_match():
 
 @pytest.mark.parametrize("bad", [
     dict(argv=["--mode", "online"]),
-    dict(argv=["--live-port", "0"]),
+    dict(argv=["--mode", "online", "--live-port", "0"]),
     dict(argv=["--viz"]),
 ])
-def test_unported_paths_raise(bad, tmp_path):
-    """Options outside the ported slice raise, naming their ROADMAP.md
-    item, before any work is done (the command line's online mode, live
-    viewer and plots)."""
+def test_unported_paths_raise(bad, tmp_path, capsys, monkeypatch):
+    """The options that raised while they were outside the ported slice
+    (the online mode, its live viewer, the plots) now run on the CPU:
+    --mode online writes integrated.tum, --live-port serves and stops,
+    --viz writes viz.png and viewer.html, or without matplotlib raises
+    before any output."""
+    import importlib.util
+    import socket
+
     from loam_tpu_torch import cli
+    from loam_tpu_torch.io import export
 
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--synthetic", "1", "--device", "cpu", "--out-dir",
-                  str(out)] + bad["argv"])
-    assert not out.exists()
+    base = ["--synthetic", "3", "--ring-width", "512", "--device", "cpu"]
+    argv = base + ["--out-dir", str(out)] + bad["argv"]
+    if "--viz" in argv and importlib.util.find_spec("matplotlib") is None:
+        with pytest.raises(RuntimeError, match="matplotlib"):
+            cli.main(argv)
+        assert not out.exists()
+        return
+    assert cli.main(argv) == 0
+    printed = capsys.readouterr().out
+    if "--viz" in argv:
+        assert (out / "viz.png").read_bytes()[:4] == b"\x89PNG"
+        assert b"const DATA = " in (out / "viewer.html").read_bytes()
+        # and where matplotlib is missing, the refusal comes first
+        find = importlib.util.find_spec
+        monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a:
+                            None if name == "matplotlib" else find(name, *a))
+        bare = tmp_path / "bare"
+        with pytest.raises(RuntimeError, match="matplotlib"):
+            cli.main(base + ["--out-dir", str(bare), "--viz"])
+        assert not bare.exists()
+        return
+    t, pos, _ = export.load_trajectory_tum(str(out / "integrated.tum"))
+    assert t.shape == (3,) and np.isfinite(pos).all()
+    assert "online: 3 odometry frames, 1 mapping frames, 0 dropped" in \
+        printed
+    if "--live-port" in argv:
+        port = int(printed.split("live viewer at http://127.0.0.1:")[1]
+                   .split("/")[0])
+        with pytest.raises(OSError):     # stopped with the run
+            socket.create_connection(("127.0.0.1", port), timeout=5)
 
 
 def test_port_runs_without_jax(tmp_path):
     """Importing the port and replaying two frames, without and with an
-    IMU stream, two scenarios in one batched replay, and the command
-    line over a bag with an IMU stream, leaves jax and loam_tpu out of
-    sys.modules: the port keeps its own config, synthetic sweeps, bag
-    reader and exporters (the machine with the card has no JAX)."""
+    IMU stream, two scenarios in one batched replay, the command line
+    over a bag with an IMU stream, and a paced streaming engine with its
+    live viewer, leaves jax and loam_tpu out of sys.modules: the port
+    keeps its own config, synthetic sweeps, bag reader, exporters and
+    viewers (the machine with the card has no JAX)."""
     fields = dataclasses.asdict(parity_cfg())
     bag = str(tmp_path / "two.bag")
     out_dir = str(tmp_path / "out")
@@ -162,6 +195,23 @@ def test_port_runs_without_jax(tmp_path):
                          "--out-dir", {out_dir!r}]) == 0
         _, pos, _ = export.load_trajectory_tum({out_dir!r} + "/integrated.tum")
         assert pos.shape == (2, 3) and np.isfinite(pos).all()
+        import json, urllib.request
+        from loam_tpu_torch.runtime.streaming import StreamingEngine
+        from loam_tpu_torch.viz_live import LiveServer
+        from torch_parity import paced_engine_run
+        eng = StreamingEngine(cfg, device="cpu")
+        eng.start()
+        live = LiveServer(eng, port=0, surround_every=0.0).start()
+        try:
+            _, _, traj = paced_engine_run(eng, raw, msk, [0.0, 0.1])
+            with urllib.request.urlopen(live.url + "state.json",
+                                        timeout=30) as r:
+                state = json.loads(r.read())
+        finally:
+            live.stop()
+            eng.stop()
+        assert traj.shape == (2, 6) and np.isfinite(traj).all()
+        assert state["stats"]["odom_frames"] == 2
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "loam_tpu"))
         print("FOREIGN_MODULES", bad)

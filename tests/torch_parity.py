@@ -457,6 +457,25 @@ def rpy_to_quat(rpy):
                      cr * cp * cy + sr * sp * sy], -1)
 
 
+def imu_samples(pose_fn, t_end: float, rate: float = 200.0):
+    """The noise-free IMU stream of a trajectory from t=0 to t_end at
+    `rate` Hz: orientation (pitch, yaw, roll) straight from the
+    trajectory, body-frame coordinate acceleration from central
+    differences (the post-gravity-removal quantities of
+    scanRegistration.cpp:643-647).  Returns (t, pyr, acc)."""
+    imu_t = np.arange(0.0, t_end, 1.0 / rate)
+    h = 1e-3
+    rpy = np.zeros((imu_t.shape[0], 3))
+    acc = np.zeros((imu_t.shape[0], 3))
+    for i, t in enumerate(imu_t):
+        p = pose_fn(t)
+        rpy[i] = p[:3]  # (pitch, yaw, roll) == (rx, ry, rz)
+        a_w = (pose_fn(t + h)[3:6] - 2 * p[3:6] + pose_fn(t - h)[3:6]) / h**2
+        R, _ = synth._pose_matrix(p)
+        acc[i] = R.T @ a_w
+    return imu_t, rpy, acc
+
+
 def raw_imu(pyr, acc_int, g: float = 9.81):
     """The raw sensor_msgs/Imu content of internal-frame IMU samples:
     pyr (M, 3) (pitch, yaw, roll) and acc_int (M, 3) the gravity-removed
@@ -472,3 +491,70 @@ def raw_imu(pyr, acc_int, g: float = 9.81):
         acc_int[:, 1] + np.cos(roll) * np.cos(pitch) * g,
     ], -1)
     return np.stack([roll, pitch, yaw], -1), acc
+
+
+def paced_engine_run(eng, raw, msk, t_scans, imu=None):
+    """A started streaming engine fed one sweep at a time, the IMU
+    samples (t, rpy, acc) up to the sweep's window end pushed first as
+    the command line interleaves them, with drain() after each sweep.
+    Returns (odom (F, 6), aft (F, 6), integrated (F, 6)): the latest
+    odometry and aft-mapped poses read after each frame, and the
+    integrated trajectory."""
+    odom, aft = [], []
+    cursor = 0
+    for k in range(raw.shape[0]):
+        t_scan = float(t_scans[k])
+        while imu is not None and cursor < imu[0].shape[0] and \
+                imu[0][cursor] <= t_scan + eng.cfg.scan_period + 0.05:
+            eng.push_imu(*(a[cursor] for a in imu))
+            cursor += 1
+        eng.push_sweep(raw[k], msk[k], t_scan)
+        if not eng.drain(timeout_s=600):
+            raise AssertionError(f"frame {k}: the engine did not drain")
+        odom.append(eng.latest_odom())
+        aft.append(eng.latest_aft())
+    return np.stack(odom), np.stack(aft), eng.trajectory()
+
+
+def online_rule_replay(raw, msk, cfg, device, streams=None, t_scans=None):
+    """replay_sweeps' frames (the same batched frontend, then one
+    pipeline_step a frame), and the pose the streaming engine integrates
+    at each frame: transform_associate_to_map of the frame's odometry
+    pose with the bef/aft pair that held before the frame (the last
+    mapping frame that has finished).  Returns (FrameOutput with a
+    leading F axis, online integrated poses (F, 6))."""
+    from loam_tpu_torch import pipeline
+    from loam_tpu_torch.ops.features import extract_features
+    from loam_tpu_torch.types import tree_map
+    from loam_tpu_torch.utils import rotations
+
+    raw_t = torch.as_tensor(raw, dtype=torch.float32).to(device)
+    msk_t = torch.as_tensor(msk, dtype=torch.bool).to(device)
+    sweeps, imu_trans, map_rpy = pipeline.ingest_frames(
+        raw_t, msk_t, cfg, streams, t_scans)
+    feats = extract_features(sweeps, cfg)
+    state = pipeline.PipelineState.create(cfg, device)
+    outs, online = [], []
+    for k in range(raw_t.shape[0]):
+        before = state.map
+        state, out = pipeline.pipeline_step(
+            state, feats.map(lambda t: t[k]), cfg,
+            imu=tree_map(lambda t: t[k], imu_trans),
+            map_rpy=None if map_rpy is None else map_rpy[k])
+        outs.append(out)
+        online.append(rotations.transform_associate_to_map(
+            out.pose_odom, before.transform_bef, before.transform_aft))
+    return (tree_map(lambda *ts: torch.stack(ts), *outs),
+            torch.stack(online))
+
+
+def masked_imu_windows(frames: int, capacity: int = 256, device="cpu"):
+    """All-masked IMU windows (an ImuStream with a leading frame axis):
+    what the streaming engine's frontend integrates when no IMU sample
+    was pushed."""
+    from loam_tpu_torch import imu as imu_mod
+
+    z = lambda *s: torch.zeros(s, device=device)
+    return imu_mod.imu_from_raw(
+        z(frames, capacity), z(frames, capacity, 3), z(frames, capacity, 3),
+        torch.zeros((frames, capacity), dtype=torch.bool, device=device))
