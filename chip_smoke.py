@@ -90,7 +90,26 @@ Phases, each of which raises (non-zero exit) on failure:
      sweeps with no pacing, which must drop, with the accounting held;
      (e) `python -m loam_tpu_torch --synthetic 12 --mode online` as a
      subprocess (12 poses, nothing dropped) and the HTML viewer of phase
-     4's trajectories.
+     4's trajectories;
+ 10. scale-out over torch.distributed (parallel/distributed.py) and the
+     one-frame entry (entry.py), at bench.py's configuration on phase 6's
+     scenarios: (a) a world of one rank over NCCL, replay_distributed of
+     all 8, bit-equal to phase 6's batch, with no torch.distributed call
+     but the timing all_reduce; then two ranks of this script
+     (`chip_smoke.py --rank R --ranks 2 --port P`, each loading its half
+     from smoke_out/) that share the card over gloo: (b) dp=2 x tp=1,
+     both ranks gathering identical poses within 1e-4 rad / 1e-3 m of
+     phase 6's batch and agreeing on the rate; (c) dp=1 x tp=2 over 2
+     scenarios, the Jacobian rows of every normal-equation sum split over
+     the ranks: bit-equal across the ranks and within 5e-4 of phase 6's
+     poses, printing the all_reduces a frame and the seconds beside (b)'s;
+     (d) dryrun_multichip(2) at the tiny and bench configurations,
+     finite; (e) scaling_efficiency at dp sizes 1 and 2, printed without
+     a gate (two ranks on one card measure contention); then (f) the
+     entry's forward, finite at the tiny configuration and, stepped one
+     sweep at a time at LoamConfig() over phase 4's sweeps, within
+     1e-4 rad / 1e-3 m of phase 4's default replay.  A rank that exits
+     non-zero or outlives its timeout fails the run.
 The kernel rows carry the batch's shapes too (B=8 scenarios), each
 compared bit for bit.  The last lines are the smoke's seconds, the
 kernels JSON, the card's name and power limit, and {"ok": true,
@@ -209,24 +228,21 @@ ONLINE_REALTIME_F = 40      # sweeps pushed on the 10 Hz wall clock
 ONLINE_FLOOD_F = 30         # sweeps pushed with no pacing after a warm one
 ONLINE_CLI_F = 12
 
+# scale-out over torch.distributed and the one-frame entry (phase 10)
+SCALE_RANKS = 2             # ranks sharing the one card over gloo
+SCALE_TP_B = 2              # scenarios of the row-parallel replay (c)
+SCALE_TP_GATE = 5e-4        # loam_tpu's tp=2 bound (tests/test_parallel.py)
+SCALE_SIZES = (1, 2)        # dp sizes of the weak-scaling harness (e)
+RANK_TIMEOUT = 400          # s, the spawned ranks together
+POSE_NAMES = ("pose_odom", "pose_aft", "pose_integrated")
+KERNELS = ("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk",
+           "knn_select")
+
 
 def replay_config(name: str):
     from loam_tpu_torch.config import LoamConfig
 
     return dataclasses.replace(LoamConfig(), **REPLAYS[name][0])
-
-
-def batch_config():
-    """bench.py's _cfg(): full density (ring width 2048), tables 2^14 /
-    2^15, search buckets 2^12, local-map caps 8192 / 16384, the hybrid
-    cadence (map_exact_regather_every=5) without the drift re-gather."""
-    from loam_tpu_torch.config import LoamConfig
-
-    return dataclasses.replace(
-        LoamConfig(), corner_table_size=1 << 14, surf_table_size=1 << 15,
-        search_buckets=1 << 12, max_corner_from_map=8192,
-        max_surf_from_map=16384, map_exact_knn=True,
-        map_exact_regather_every=5, knn_regather_drift=0.0)
 
 
 def golden_config(exact: bool):
@@ -876,11 +892,12 @@ def mapping_host_reads(run):
 def batch_phase(dev, card: str):
     """bench.py's workload through batched_replay on the card, held to
     each scenario's own single-scenario replay.  Returns the batch's
-    launch counts."""
+    launch counts and (raw, mask, the batch's FrameOutput)."""
     from loam_tpu_torch import pipeline
+    from loam_tpu_torch.entry import bench_cfg
     from loam_tpu_torch.parallel import replay as PR
 
-    cfg = batch_config()
+    cfg = bench_cfg()
     raw, msk, secs = batch_sweeps()
     print(f"batch: {BATCH_B} scenarios x {BATCH_F} sweeps of {N_AZIMUTH} "
           f"azimuths made in {secs:.1f} s on the host, all unique",
@@ -947,7 +964,7 @@ def batch_phase(dev, card: str):
                       f"at most {single_reads} single")
     if failed:
         raise AssertionError(f"batch replay failed its gates: {failed}")
-    return counts
+    return counts, (raw, msk, outs)
 
 
 def golden_phase(dev, card: str):
@@ -1556,6 +1573,300 @@ def online_phase(dev, card: str, raw, msk, default_outs, oracle, bag):
     return launches
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pose_gap(got: dict, want: dict) -> tuple[float, float]:
+    """Largest rotation (rad) and translation (m) gaps of the poses in
+    got to those in want (name -> NumPy (B, F, 6) each)."""
+    rot = trans = 0.0
+    for n in POSE_NAMES:
+        d = np.abs(np.asarray(got[n], np.float64) - want[n])
+        rot, trans = max(rot, float(d[..., :3].max())), \
+            max(trans, float(d[..., 3:].max()))
+    return rot, trans
+
+
+def scale_rank(rank: int, ranks: int, port: int) -> int:
+    """One rank of phase 10, started by scale_out_phase as
+    `chip_smoke.py --rank R --ranks N --port P`: over gloo with the other
+    ranks on the one card, (b) replay_distributed of this rank's
+    scenarios (smoke_out/scale_rank<R>.npz) on a dp mesh, the poses
+    gathered; (e) scaling_efficiency at dp sizes SCALE_SIZES; (c) the
+    row-parallel replay of smoke_out/scale_tp.npz on a tp mesh; (d)
+    dryrun_multichip over every rank.  Launches and torch.distributed
+    calls are counted around each.  Writes smoke_out/scale_out<R>.npz."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    from loam_tpu_torch import configure_numerics
+    from loam_tpu_torch.entry import bench_cfg, dryrun_multichip
+    from loam_tpu_torch.parallel import distributed as D
+    from loam_tpu_torch.parallel import replay as PR
+    from torch_dcn_worker import count_collectives
+
+    dev = torch.device("cuda", 0)
+    D.initialize(f"127.0.0.1:{port}", ranks, rank, backend="gloo",
+                 device=dev)
+    configure_numerics()
+    cfg = bench_cfg()
+    res = {}
+
+    # (b) dp=ranks x tp=1, this rank's block
+    data = np.load(OUT_DIR / f"scale_rank{rank}.npz")
+    mesh = D.global_mesh(tp=1)
+    with count_collectives() as calls:
+        out, counts, _ = counted_replay(
+            "scale-out (b)", BATCH_PATH, (), lambda: None,
+            lambda: D.replay_distributed(data["raw"], data["msk"], cfg,
+                                         mesh=mesh))
+    for n in POSE_NAMES + ("mapped",):
+        res[f"b_{n}"] = D.gather_metric(getattr(out.outs, n), mesh)
+    res.update(b_rate=out.per_chip_rate, b_seconds=out.elapsed_s,
+               b_frames=out.frames_total, b_mesh=(mesh.dp, mesh.tp),
+               b_launches=[counts[k] for k in KERNELS],
+               b_calls=json.dumps(dict(calls)))
+
+    # (e) weak scaling on submeshes of the first 1 and 2 ranks
+    scaling = D.scaling_efficiency(cfg, dp_sizes=SCALE_SIZES)
+    res.update(e_sizes=sorted(scaling["rates"]),
+               e_rates=[scaling["rates"][s] for s in sorted(scaling["rates"])],
+               e_efficiency=scaling["efficiency"])
+
+    # (c) dp=1 x tp=ranks: the Jacobian rows split over every rank
+    tp_data = np.load(OUT_DIR / "scale_tp.npz")
+    tp_mesh = D.global_mesh(tp=ranks)
+    run = PR.make_sharded_replay(tp_mesh, cfg)
+    with count_collectives() as calls:
+        tp_out, counts, seconds = counted_replay(
+            "scale-out (c)", BATCH_PATH, (),
+            lambda: run(tp_data["raw"][:, :3], tp_data["msk"][:, :3]),
+            lambda: run(tp_data["raw"], tp_data["msk"]))
+    for n in POSE_NAMES + ("mapped",):
+        res[f"c_{n}"] = getattr(tp_out, n).cpu().numpy()
+    res.update(c_seconds=seconds, c_mesh=(tp_mesh.dp, tp_mesh.tp),
+               c_launches=[counts[k] for k in KERNELS],
+               c_calls=json.dumps(dict(calls)))
+
+    # (d) the dry run over every rank: the tiny configuration, then bench's
+    dry, counts, _ = counted_replay(
+        "scale-out (d)", ("select_walk",), (), lambda: None,
+        lambda: dryrun_multichip(ranks))
+    res.update(d_pose=np.stack([o.pose_integrated.cpu().numpy()
+                                for o in dry]),
+               d_launches=[counts[k] for k in KERNELS])
+
+    np.savez(OUT_DIR / f"scale_out{rank}.npz", **res)
+    torch.distributed.destroy_process_group()
+    print(f"rank {rank} of {ranks}: done", flush=True)
+    return 0
+
+
+def spawn_ranks(ranks: int) -> list:
+    """Start `ranks` processes of scale_rank on a free loopback port and
+    wait for them (RANK_TIMEOUT for all).  Raises, with the end of each
+    rank's log, when one exits non-zero or time runs out; kills every
+    rank it started."""
+    port = free_port()
+    logs = [OUT_DIR / f"scale_rank{r}.log" for r in range(ranks)]
+    procs = []
+    try:
+        for r in range(ranks):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--rank",
+                     str(r), "--ranks", str(ranks), "--port", str(port)],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=ROOT))
+        deadline = time.monotonic() + RANK_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired as exc:
+        raise AssertionError(
+            f"phase 10: the ranks did not finish in {RANK_TIMEOUT} s:\n"
+            + "\n".join(log.read_text()[-2000:] for log in logs)) from exc
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise AssertionError(
+            f"phase 10: rank exit codes {bad}:\n"
+            + "\n".join(logs[r].read_text()[-3000:] for r, _ in bad))
+    return [dict(np.load(OUT_DIR / f"scale_out{r}.npz"))
+            for r in range(ranks)]
+
+
+def scale_out_phase(dev, card: str, batch, raw, msk, default_outs):
+    """Phase 10: the scale-out layer over torch.distributed and the
+    one-frame entry, on the card.  batch: phase 6's (raw, mask, outputs)
+    of bench.py's workload; raw, msk and default_outs: phase 4's sweeps
+    and default replay.  Returns the launch counts of each run."""
+    import torch.distributed as dist
+
+    from loam_tpu_torch.config import LoamConfig
+    from loam_tpu_torch.entry import bench_cfg, entry
+    from loam_tpu_torch.parallel import distributed as D
+    from torch_dcn_worker import count_collectives
+
+    t_phase = time.perf_counter()
+    braw, bmsk, bouts = batch
+    want = {n: getattr(bouts, n).cpu().numpy()
+            for n in POSE_NAMES + ("mapped",)}
+    cfg = bench_cfg()
+    launches, failed = {}, []
+
+    # (a) a world of one rank over NCCL, all eight scenarios
+    D.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl",
+                 device=dev)
+    try:
+        backend = dist.get_backend()
+        with count_collectives() as calls:
+            res, counts, _ = counted_replay(
+                "scale-out (a)", BATCH_PATH, (), lambda: None,
+                lambda: D.replay_distributed(braw, bmsk, cfg))
+        gathered = {n: D.gather_metric(getattr(res.outs, n))
+                    for n in POSE_NAMES}
+    finally:
+        dist.destroy_process_group()
+    launches["scale-out a"] = counts
+    same = all(torch.equal(getattr(res.outs, n), getattr(bouts, n))
+               for n in POSE_NAMES + ("mapped",))
+    rot, trans = pose_gap(gathered, want)
+    print(f"scale-out (a): world 1 over {backend}, replay_distributed of "
+          f"{BATCH_B} x {BATCH_F}: {res.per_chip_rate:.2f} frames/s a "
+          f"rank ({res.elapsed_s:.3f} s); bit-equal to phase 6's batch: "
+          f"{same}; gathered gap {rot:.3g} rad / {trans:.3g} m; "
+          f"torch.distributed calls {dict(calls)}; launches {counts} "
+          f"[{card}]", flush=True)
+    if backend != "nccl" or not same or rot or trans:
+        failed.append(f"(a) {backend}: bit-equal {same}, gap {rot}, {trans}")
+    if dict(calls) != {"all_reduce": 1}:
+        failed.append(f"(a) the dp path called {dict(calls)}, not the "
+                      "timing all_reduce alone")
+
+    # (b)-(e) in two ranks that share the card over gloo
+    OUT_DIR.mkdir(exist_ok=True)
+    half = BATCH_B // SCALE_RANKS
+    for r in range(SCALE_RANKS):
+        np.savez(OUT_DIR / f"scale_rank{r}.npz",
+                 raw=braw[r * half:(r + 1) * half],
+                 msk=bmsk[r * half:(r + 1) * half])
+    np.savez(OUT_DIR / "scale_tp.npz", raw=braw[:SCALE_TP_B],
+             msk=bmsk[:SCALE_TP_B])
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    ranks = spawn_ranks(SCALE_RANKS)
+    t_ranks = time.perf_counter() - t_ranks
+    r0 = ranks[0]
+    for tag in ("b", "c", "d"):
+        launches[f"scale-out {tag}"] = {
+            k: int(sum(r[f"{tag}_launches"][i] for r in ranks))
+            for i, k in enumerate(KERNELS)}
+
+    # (b) dp=2 x tp=1
+    equal = all(np.array_equal(r[f"b_{n}"], r0[f"b_{n}"]) for r in ranks
+                for n in POSE_NAMES + ("mapped",))
+    rot, trans = pose_gap({n: r0[f"b_{n}"] for n in POSE_NAMES}, want)
+    cadence = np.array_equal(r0["b_mapped"], want["mapped"])
+    rates = [float(r["b_rate"]) for r in ranks]
+    print(f"scale-out (b): dp=2 x tp=1 over gloo, two ranks on one card, "
+          f"{half} scenarios each: {rates[0]:.2f} frames/s a rank "
+          f"({float(r0['b_seconds']):.3f} s, the slowest rank's); ranks "
+          f"gathered identical poses: {equal}; gap to phase 6's batch "
+          f"{rot:.3g} rad / {trans:.3g} m (gate {BATCH_ROT} / {BATCH_TRANS})"
+          f"; cadence equal {cadence}; calls a rank "
+          f"{[str(r['b_calls']) for r in ranks]}; launches "
+          f"{launches['scale-out b']} [{card}]", flush=True)
+    if not (equal and cadence and rot < BATCH_ROT and trans < BATCH_TRANS):
+        failed.append(f"(b) identical {equal}, cadence {cadence}, gap "
+                      f"{rot} rad, {trans} m")
+    if len(set(rates)) != 1 or int(r0["b_frames"]) != BATCH_B * BATCH_F:
+        failed.append(f"(b) the ranks' rates {rates}, frames "
+                      f"{int(r0['b_frames'])}")
+
+    # (c) dp=1 x tp=2
+    equal = all(np.array_equal(r[f"c_{n}"], r0[f"c_{n}"]) for r in ranks
+                for n in POSE_NAMES + ("mapped",))
+    d = max(pose_gap({n: r0[f"c_{n}"] for n in POSE_NAMES},
+                     {n: want[n][:SCALE_TP_B] for n in POSE_NAMES}))
+    cadence = np.array_equal(r0["c_mapped"], want["mapped"][:SCALE_TP_B])
+    calls = json.loads(str(r0["c_calls"]))
+    per_frame = calls.get("all_reduce", 0) / BATCH_F
+    c_rate = SCALE_TP_B * BATCH_F / float(r0["c_seconds"])
+    print(f"scale-out (c): dp=1 x tp=2 over gloo, {SCALE_TP_B} scenarios, "
+          f"rows split over the two ranks: ranks bit-equal {equal}; gap "
+          f"to phase 6's batch {d:.3g} (gate {SCALE_TP_GATE}); cadence "
+          f"equal {cadence}; {per_frame:.2f} all_reduces a frame "
+          f"({calls}); {float(r0['c_seconds']):.3f} s = {c_rate:.2f} "
+          f"frames/s against (b)'s {float(r0['b_seconds']):.3f} s for "
+          f"{BATCH_B * BATCH_F} frames = "
+          f"{BATCH_B * BATCH_F / float(r0['b_seconds']):.2f} frames/s; "
+          f"launches {launches['scale-out c']} [{card}]", flush=True)
+    if not (equal and cadence and d < SCALE_TP_GATE):
+        failed.append(f"(c) ranks equal {equal}, cadence {cadence}, gap {d}")
+    if set(calls) != {"all_reduce"} or per_frame < 1:
+        failed.append(f"(c) torch.distributed calls {calls}")
+
+    # (d) the dry run at tiny_cfg() and bench_cfg()
+    finite = all(np.isfinite(r["d_pose"]).all() for r in ranks)
+    print(f"scale-out (d): dryrun_multichip(2) (tp=2) at tiny_cfg() and "
+          f"bench_cfg(): finite {finite}, poses {r0['d_pose'].tolist()} "
+          f"[{card}]", flush=True)
+    if not finite or r0["d_pose"].shape[0] != 2:
+        failed.append("(d) the dry run's poses are not finite")
+
+    # (e) weak scaling, printed only
+    rates_e = dict(zip(r0["e_sizes"].tolist(), r0["e_rates"].tolist()))
+    print(f"scale-out (e): scaling_efficiency at dp sizes {SCALE_SIZES} "
+          f"(bench_cfg(), 2 random scenarios x 8 frames of 4096 points a "
+          f"rank): frames/s a rank {rates_e}, efficiency "
+          f"{float(r0['e_efficiency']):.4f}; the two ranks share one card, "
+          f"so this measures contention, not scaling; no gate [{card}]",
+          flush=True)
+
+    # (f) the one-frame entry
+    forward, args = entry()
+    _, pose = forward(*args)
+    tiny_ok = bool(torch.isfinite(pose).all())
+    forward, (_, _, state0) = entry(cfg=LoamConfig())
+    raw_t = torch.tensor(raw, device=dev)
+    msk_t = torch.tensor(msk, device=dev)
+
+    def stepped():
+        state, poses = state0, []
+        for k in range(raw_t.shape[0]):
+            state, p = forward(raw_t[k], msk_t[k], state)
+            poses.append(p)
+        return torch.stack(poses)
+
+    _, required, forbidden = REPLAYS["default"]
+    poses, counts, seconds = counted_replay(
+        "entry", required, forbidden, lambda: None, stepped)
+    launches["entry"] = counts
+    d = np.abs(poses.double().cpu().numpy()
+               - default_outs.pose_integrated.cpu().numpy())
+    rot, trans = float(d[:, :3].max()), float(d[:, 3:].max())
+    print(f"entry (f): forward at tiny_cfg() finite {tiny_ok}; stepped one "
+          f"sweep at a time at LoamConfig() over phase 4's {FRAMES} sweeps "
+          f"in {seconds:.3f} s = {FRAMES / seconds:.2f} frames/s; gap to "
+          f"phase 4's default replay {rot:.3g} rad / {trans:.3g} m (gate "
+          f"{BATCH_ROT} / {BATCH_TRANS}); launches {counts} [{card}]",
+          flush=True)
+    if not (tiny_ok and rot < BATCH_ROT and trans < BATCH_TRANS):
+        failed.append(f"(f) tiny finite {tiny_ok}, gap {rot} rad, {trans} m")
+    print(f"scale-out phase: {time.perf_counter() - t_phase:.1f} s, the "
+          f"ranks {t_ranks:.1f} s [{card}]", flush=True)
+    if failed:
+        raise AssertionError(f"phase 10 failed its gates: {failed}")
+    return launches
+
+
 def fetch(url: str) -> bytes:
     """GET over loopback."""
     import urllib.request
@@ -1582,6 +1893,15 @@ def print_rows(rows, card: str) -> None:
 
 def main() -> int:
     t_start = time.perf_counter()
+    if len(sys.argv) > 1:
+        import argparse
+
+        ap = argparse.ArgumentParser(description="one rank of phase 10")
+        ap.add_argument("--rank", type=int, required=True)
+        ap.add_argument("--ranks", type=int, required=True)
+        ap.add_argument("--port", type=int, required=True)
+        a = ap.parse_args()
+        return scale_rank(a.rank, a.ranks, a.port)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False)")
@@ -1633,23 +1953,26 @@ def main() -> int:
                 f"{name} replay: mapping cadence differs from the oracle")
 
     launches["imu"] = imu_phase(dev, card, imu)
-    launches["batch"] = batch_phase(dev, card)
+    launches["batch"], batch = batch_phase(dev, card)
     launches["golden"], launches["golden hybrid"] = golden_phase(dev, card)
     cli_synthetic_phase(card)
     launches["cli bag"], bag = cli_bag_phase(dev, card)
     checkpoint_phase(dev, card, bag)
     launches.update(online_phase(dev, card, raw, msk, replays["default"],
                                  oracle, bag))
+    launches.update(scale_out_phase(dev, card, batch, raw, msk,
+                                    replays["default"]))
 
-    # the windowed k-NN runs at k=5 in the strict replay and the online
-    # engine only, and at k=8 in the hybrid ones; every other count sums
-    # over the replays
-    k8_runs = ("hybrid", "batch", "golden hybrid", "cli bag")
+    # the windowed k-NN runs at k=5 in the strict replay, the entry and
+    # the online engine only, and at k=8 in the hybrid ones (phase 10's
+    # replays too); every other count sums over the replays
+    k8_runs = ("hybrid", "batch", "golden hybrid", "cli bag", "scale-out a",
+               "scale-out b", "scale-out c")
     online = [n for n in launches if n.startswith("online")]
     for r in rows:
         if r["name"] == "knn_topk_dyn":
             r["launches"] = sum(launches[n]["knn_topk_dyn"]
-                                for n in ["default"] + online)
+                                for n in ["default", "entry"] + online)
         elif r["name"] == "knn_topk_dyn_k8":
             r["launches"] = sum(launches[n]["knn_topk_dyn"] for n in k8_runs)
         else:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.context import constrain_axis0, constrain_rows, reduce_rows
 from ..types import per_scenario
 from ..utils import rotations
 from ..utils.numerics import sqrt
@@ -81,13 +82,16 @@ def odom_jacobian_rows(points, coeffs, transform):
 def normal_equations_accumulated(J, C, b):
     """ata = sum_n J_n^T C_n J_n, atb = sum_n J_n^T b_n, for J
     (B, N, 3, 6), C (B, N, 3, 3), b (B, N, 3), one scenario at a time
-    (types.per_scenario)."""
+    (types.per_scenario).  Under parallel.context.row_sharding each rank
+    sums its block of the point axis and one all_reduce adds the
+    blocks."""
     def one(J, C, b):
         CJ = torch.einsum("nab,nbj->naj", C, J)
         return (torch.einsum("nai,naj->ij", J, CJ),
                 torch.einsum("nai,na->i", J, b))
 
-    return per_scenario(one, J, C, b)
+    J, C, b = constrain_axis0(J), constrain_axis0(C), constrain_axis0(b)
+    return reduce_rows(*per_scenario(one, J, C, b))
 
 
 def map_jacobian_rows(points, coeffs, transform):
@@ -108,10 +112,14 @@ def map_jacobian_rows(points, coeffs, transform):
 
 def normal_equations(rows, rhs, keep):
     """Masked JtJ / Jtb (src/laserOdometry.cpp:765-767) of rows
-    (B, N, 6), one scenario at a time (types.per_scenario)."""
+    (B, N, 6), one scenario at a time (types.per_scenario).  Under
+    parallel.context.row_sharding each rank forms them over its block of
+    the row axis and one all_reduce adds the (B, 6, 6) and (B, 6)
+    partial sums."""
     def one(rows, rhs, keep):
         w = keep.to(rows.dtype)
         rows_m = rows * w[:, None]
         return rows_m.T @ rows_m, rows_m.T @ (rhs * w)
 
-    return per_scenario(one, rows, rhs, keep)
+    rows, rhs, keep = (constrain_rows(t) for t in (rows, rhs, keep))
+    return reduce_rows(*per_scenario(one, rows, rhs, keep))

@@ -3,7 +3,7 @@ replay on the card.
 
     python3 profile_torch_drift.py [--package DIR]
 
-Runs bench.py's workload (chip_smoke.batch_sweeps, batch_config: B=8
+Runs bench.py's workload (chip_smoke.batch_sweeps, entry.bench_cfg: B=8
 scenarios x F=17 full-density sweeps) through loam_tpu_torch on one
 CUDA device and compares, bit for bit:
 
@@ -20,8 +20,8 @@ CUDA device and compares, bit for bit:
      state: the first call that differs names the op.
 
 --package DIR imports loam_tpu_torch from another checkout (an unpacked
-earlier commit) to compare two versions on one card.  Prints the card's
-name and power limit on every line.
+earlier commit that has loam_tpu_torch/entry.py) to compare two versions
+on one card.  Prints the card's name and power limit on every line.
 """
 
 from __future__ import annotations
@@ -230,6 +230,7 @@ def main() -> int:
     import chip_smoke as CS
     import loam_tpu_torch
     from loam_tpu_torch import configure_numerics
+    from loam_tpu_torch.entry import bench_cfg
     from loam_tpu_torch.ops.cuda import _build
 
     card = CS.card_line()
@@ -239,7 +240,7 @@ def main() -> int:
     raw, msk, _ = CS.batch_sweeps()
     print(f"drift: loam_tpu_torch from {Path(loam_tpu_torch.__file__).parent}"
           f", B={raw.shape[0]} x F={raw.shape[1]} [{card}]", flush=True)
-    drift(torch.device("cuda", 0), CS.batch_config(), raw, msk, card)
+    drift(torch.device("cuda", 0), bench_cfg(), raw, msk, card)
     print(f"drift: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
     return 0
 

@@ -168,6 +168,7 @@ def main() -> int:
     if unknown:
         raise SystemExit(f"unknown mode {unknown}; one of {known}")
     from loam_tpu_torch import configure_numerics
+    from loam_tpu_torch.entry import bench_cfg
     from loam_tpu_torch.ops.cuda import _build
 
     card = CS.card_line()
@@ -184,7 +185,7 @@ def main() -> int:
                          (stream, t_scans))
         elif name == "batch":
             braw, bmsk, _ = CS.batch_sweeps()
-            profile_mode(name, CS.batch_config(),
+            profile_mode(name, bench_cfg(),
                          torch.tensor(braw, device=dev),
                          torch.tensor(bmsk, device=dev), dev, card)
         else:

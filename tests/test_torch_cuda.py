@@ -576,3 +576,34 @@ def test_streaming_engine_sheds_load_on_card(cuda):
     q = st.queue_stats
     assert st.frames_in == 31 and q["raw"]["dropped"] > 0
     assert st.odom_frames + q["raw"]["dropped"] + q["feats"]["dropped"] == 31
+
+
+def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """Two ranks on the one card over gloo (tests/torch_dcn_worker.py) at
+    the tiny configuration with rings of 512: the dp=2 replay of four
+    scenarios gathers the same poses on both ranks, bit-equal to one
+    process's batched replay on the card; the tp=2 replay (rows split
+    over the ranks) is bit-equal across the ranks and within 5e-4 of the
+    unsplit replay; the tp=2 dry run is finite."""
+    from loam_tpu_torch.parallel import replay
+    from torch_dcn_worker import POSES, run_ranks, worker_cfg
+    from torch_parity import make_sweeps
+
+    scen = [make_sweeps(5, seed=s, speed=v, yaw_rate=w)
+            for s, v, w in ((3, 0.9, 0.12), (2, 0.9, 0.12),
+                            (6, 0.8, -0.12), (9, 0.6, 0.2))]
+    raw = np.stack([s[0] for s in scen])
+    msk = np.stack([s[1] for s in scen])
+    (r0, r1), _ = run_ranks(str(tmp_path), dict(raw=raw, msk=msk), "replay",
+                            device="cuda", timeout=300)
+    ref = replay.batched_replay(raw, msk, worker_cfg())
+    for n in POSES:
+        want = getattr(ref, n).cpu().numpy()
+        np.testing.assert_array_equal(r0[f"dp_{n}"], r1[f"dp_{n}"])
+        np.testing.assert_array_equal(r0[f"dp_{n}"], want)
+        np.testing.assert_array_equal(r0[f"tp_{n}"], r1[f"tp_{n}"])
+        np.testing.assert_allclose(r0[f"tp_{n}"], want[:2], rtol=0,
+                                   atol=5e-4)
+    assert int(r0["dp_path_calls"]) == 0 and int(r0["tp_all_reduce"]) > 0
+    assert r0["dp_rate"] == r1["dp_rate"] > 0
+    assert np.isfinite(r0["dry_pose"]).all()
