@@ -48,7 +48,8 @@ Phases, each of which raises (non-zero exit) on failure:
      launch knn_topk fewer times than the eight single replays together.
      Prints frames/s of the batch and of the single replays, peak device
      memory and the host reads of a mapping frame, batched and single;
-  7. the long golden gates of tests/test_golden_parity.py on the card:
+  7. the long golden gates of tests/test_golden_parity.py on the card
+     (their NumPy oracle runs in a process of its own beside phases 4-6):
      100 straight frames of 600 azimuths at its CFG (the cell-bucket map)
      against tests/golden/pipeline.run_pipeline (odometry ATE < 1 cm,
      integrated and aft-mapped ATE < 5 cm, the oracle's cadence, yaw
@@ -109,11 +110,28 @@ Phases, each of which raises (non-zero exit) on failure:
      entry's forward, finite at the tiny configuration and, stepped one
      sweep at a time at LoamConfig() over phase 4's sweeps, within
      1e-4 rad / 1e-3 m of phase 4's default replay.  A rank that exits
-     non-zero or outlives its timeout fails the run.
+     non-zero or outlives its timeout fails the run;
+ 11. loam_tpu's long-horizon gates in its corrected-semantics mode
+     (odom_accumulate_rows=False, emulate_upward_scan_truncation=False)
+     at tests/test_long_sequence.py's configuration (rings of 1024,
+     tables of 2^15 / 2^17) on its seed-9 figure-8 of 600 azimuths: (a)
+     200 frames strict, drift < 1.0 % of the distance travelled and ATE
+     < 0.12 m against the ground truth; (b) the first 100 frames at
+     map_exact_regather_every=5, drift < 1.5 % and ATE < 0.15 m; (c)
+     (a)'s 200 frames split 120/80 around a CheckpointManager save and
+     restore, the resumed integrated poses within 1e-4 of (a)'s; (a)-(c)
+     must launch select_walk, knn_topk, odom_corr and knn_topk_dyn, (b)
+     knn_select too; then (d) tests/test_streaming_imu.py's scenario, the
+     streaming engine paced over 8 sweeps of the accelerating trajectory
+     with and without its 200 Hz IMU samples: ATE < 6 cm with the IMU and
+     no worse than without.  Prints frames/s, drift, ATE, the resume gap,
+     the checkpoint milliseconds and the phase's seconds.
 The kernel rows carry the batch's shapes too (B=8 scenarios), each
-compared bit for bit.  The last lines are the smoke's seconds, the
-kernels JSON, the card's name and power limit, and {"ok": true,
-"device": {...}}.
+compared bit for bit; odom_corr_untruncated is odom_corr's walk without
+the upward-scan truncation, at the corner and surf shapes, its launches
+those of phase 11's figure-8 replays.  The last lines are the smoke's
+seconds, the kernels JSON, the card's name and power limit, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -234,6 +252,27 @@ SCALE_TP_B = 2              # scenarios of the row-parallel replay (c)
 SCALE_TP_GATE = 5e-4        # loam_tpu's tp=2 bound (tests/test_parallel.py)
 SCALE_SIZES = (1, 2)        # dp sizes of the weak-scaling harness (e)
 RANK_TIMEOUT = 400          # s, the spawned ranks together
+ORACLE_TIMEOUT = 600        # s, phase 7's oracle after phase 6 has ended
+
+# loam_tpu's long-horizon gates (phase 11): the figure-8 of
+# tests/test_long_sequence.py:29-160 and the accelerating online IMU run
+# of tests/test_streaming_imu.py:22-31,69-113
+LONG_F = 200
+LONG_HYBRID_F = 100
+LONG_AZIMUTH = 600
+LONG_SEED = 9
+LONG_SPLIT = 120             # frames before the checkpoint
+LONG_DRIFT_GATE = 1.0        # % of the distance travelled, strict
+LONG_ATE_GATE = 0.12         # m
+LONG_HYBRID_DRIFT_GATE = 1.5
+LONG_HYBRID_ATE_GATE = 0.15
+LONG_RESUME_GATE = 1e-4      # the JAX test's atol
+LONG_PATH = ("select_walk", "knn_topk", "odom_corr", "knn_topk_dyn")
+# the runs in the corrected-semantics mode: odom_corr walks untruncated
+UNTRUNCATED_RUNS = ("long strict", "long hybrid", "long split")
+ACCEL_F = 8
+ACCEL_SEED = 3
+ACCEL_ATE_GATE = 0.06        # m, with the IMU
 POSE_NAMES = ("pose_odom", "pose_aft", "pose_integrated")
 KERNELS = ("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk",
            "knn_select")
@@ -561,49 +600,56 @@ def kernel_phase(dev, raw, msk, cfg, imu):
     # ---- odom_corr: surf walks on a lattice cloud with locally unsorted
     # rings (exact ties within and across the two sides), then corner and
     # surf walks on a ring-sorted cloud, the surf walks also for the
-    # batch of BATCH_B scenarios; every output compared exactly
-    shapes = []
-    for B, Q, M, surf, ties in ((1, 512, 4096, True, True),
-                                (1, 256, 2048, False, False),
-                                (BATCH_B, 512, 16384, True, False),
-                                (1, 512, 16384, True, False)):
-        live = M * 2 // 3
-        rings = np.zeros((B, M), np.int32)
-        rings[:, :live] = np.sort(rng.integers(0, 16, (B, live)), -1)
-        j1 = torch.tensor(rng.integers(-1, live, (B, Q)), **i32)
-        if ties:
-            rings[:, :live] = np.clip(
-                rings[:, :live] + rng.integers(-2, 3, (B, live)), 0, 15)
-            ref = torch.tensor(lattice(rng, (B, M, 3)), device=dev)
-            q = torch.tensor(lattice(rng, (B, Q, 3)), device=dev)
-        else:
-            ref = cloud(M, live, 30.0, B)
-            base = torch.gather(ref, 1, j1.clamp(min=0).long()[..., None]
-                                .expand(B, Q, 3))
-            q = (base + torch.tensor(rng.normal(0, 0.3, (B, Q, 3)),
-                                     device=dev)).float().contiguous()
-        ring_t = torch.tensor(rings, device=dev)
-        n_q = torch.full((B,), Q * 3 // 4, **i32)
-        n_ref = torch.full((B,), live, **i32)
-        args = (q, ref, ring_t, j1, n_q, n_ref)
-        kw = dict(surf=surf, window=cfg.ring_window, truncate=True)
-        run_k = lambda: OC._launch(*args, **kw)
-        run_p = lambda: OC.odom_corr_plain(*args, **kw)
-        up, dn, _, _ = OC.walk_masks(ring_t, j1, n_q, n_ref,
-                                     window=cfg.ring_window, truncate=True)
-        visited = int(up.sum()) + int(dn.sum())
-        shapes.append(dict(
-            shape=f"B={B},Q={Q},M={M},live={live},"
-                  f"{'surf' if surf else 'corner'},visited={visited}"
-                  + (",lattice" * ties),
-            max_abs_err=_compare("odom_corr", run_k(), run_p()),
-            ms=time_ms(run_k), device_ms=device_ms(run_k),
-            plain_ms=time_ms(run_p), library_ms=None,
-            # + a ring compare per visited point
-            **bound(B * (12 * Q + 16 * live + 4 * Q + 16 * Q),
-                    (PAIR_OPS + 1) * visited)))
-    add("odom_corr", "odom_corr", "loam_tpu_torch/csrc/odom_corr.cu",
-        "loam_tpu/ops/pallas/odom_corr.py:65", shapes)
+    # batch of BATCH_B scenarios; every output compared exactly.  Then
+    # the untruncated walks of the corrected-semantics mode (phase 11) at
+    # the corner and surf shapes, as a row of their own
+    for name, truncate, cases in (
+            ("odom_corr", True, ((1, 512, 4096, True, True),
+                                 (1, 256, 2048, False, False),
+                                 (BATCH_B, 512, 16384, True, False),
+                                 (1, 512, 16384, True, False))),
+            ("odom_corr_untruncated", False,
+             ((1, 256, 2048, False, False), (1, 512, 16384, True, False)))):
+        shapes = []
+        for B, Q, M, surf, ties in cases:
+            live = M * 2 // 3
+            rings = np.zeros((B, M), np.int32)
+            rings[:, :live] = np.sort(rng.integers(0, 16, (B, live)), -1)
+            j1 = torch.tensor(rng.integers(-1, live, (B, Q)), **i32)
+            if ties:
+                rings[:, :live] = np.clip(
+                    rings[:, :live] + rng.integers(-2, 3, (B, live)), 0, 15)
+                ref = torch.tensor(lattice(rng, (B, M, 3)), device=dev)
+                q = torch.tensor(lattice(rng, (B, Q, 3)), device=dev)
+            else:
+                ref = cloud(M, live, 30.0, B)
+                base = torch.gather(ref, 1, j1.clamp(min=0).long()[..., None]
+                                    .expand(B, Q, 3))
+                q = (base + torch.tensor(rng.normal(0, 0.3, (B, Q, 3)),
+                                         device=dev)).float().contiguous()
+            ring_t = torch.tensor(rings, device=dev)
+            n_q = torch.full((B,), Q * 3 // 4, **i32)
+            n_ref = torch.full((B,), live, **i32)
+            args = (q, ref, ring_t, j1, n_q, n_ref)
+            kw = dict(surf=surf, window=cfg.ring_window, truncate=truncate)
+            run_k = lambda: OC._launch(*args, **kw)
+            run_p = lambda: OC.odom_corr_plain(*args, **kw)
+            up, dn, _, _ = OC.walk_masks(ring_t, j1, n_q, n_ref,
+                                         window=cfg.ring_window,
+                                         truncate=truncate)
+            visited = int(up.sum()) + int(dn.sum())
+            shapes.append(dict(
+                shape=f"B={B},Q={Q},M={M},live={live},"
+                      f"{'surf' if surf else 'corner'},visited={visited}"
+                      + (",lattice" * ties) + f",truncate={truncate}",
+                max_abs_err=_compare("odom_corr", run_k(), run_p()),
+                ms=time_ms(run_k), device_ms=device_ms(run_k),
+                plain_ms=time_ms(run_p), library_ms=None,
+                # + a ring compare per visited point
+                **bound(B * (12 * Q + 16 * live + 4 * Q + 16 * Q),
+                        (PAIR_OPS + 1) * visited)))
+        add(name, "odom_corr", "loam_tpu_torch/csrc/odom_corr.cu",
+            "loam_tpu/ops/pallas/odom_corr.py:65", shapes)
 
     rows.append(select_walk_row(dev, raw, msk, cfg, imu))
 
@@ -967,18 +1013,81 @@ def batch_phase(dev, card: str):
     return counts, (raw, msk, outs)
 
 
-def golden_phase(dev, card: str):
-    """The long golden gates of tests/test_golden_parity.py on the card.
-    Returns the launch counts of its two replays."""
+def golden_oracle(out: str) -> int:
+    """Phase 7's NumPy oracle in a process of its own, started by
+    start_golden_oracle as `chip_smoke.py --golden-oracle OUT`: the
+    golden sequence through tests/golden/pipeline.run_pipeline, its
+    trajectories and seconds saved to OUT (.npz)."""
+    sys.path.insert(0, str(ROOT / "tests"))
     from golden.pipeline import run_pipeline
+
+    t0 = time.perf_counter()
+    oracle = run_pipeline(*golden_sequence())
+    np.savez(out, seconds=time.perf_counter() - t0, **oracle)
+    return 0
+
+
+def start_golden_oracle():
+    """Start golden_oracle beside the card's phases 4-6, on one BLAS
+    thread (its trajectories are those of any thread count, bit for bit;
+    one thread leaves the host's other cores to the replays).  Returns
+    (process, output path, log path)."""
+    import atexit
+    import os
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = OUT_DIR / "golden_oracle.npz"
+    out.unlink(missing_ok=True)
+    log = OUT_DIR / "golden_oracle.log"
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--golden-oracle",
+             str(out)], stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
+            env=env)
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    # a phase that fails before phase 7 leaves no oracle running
+    atexit.register(stop)
+    return proc, out, log
+
+
+def wait_golden_oracle(started) -> dict:
+    """The oracle's trajectories, once its process has ended; raises with
+    the end of its log when it fails or outlives ORACLE_TIMEOUT."""
+    proc, out, log = started
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=ORACLE_TIMEOUT)
+    except subprocess.TimeoutExpired as exc:
+        raise AssertionError(f"the golden oracle did not finish in "
+                             f"{ORACLE_TIMEOUT} s") from exc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        raise AssertionError(f"the golden oracle exited {proc.returncode}:"
+                             f"\n{log.read_text()[-3000:]}")
+    oracle = dict(np.load(out))
+    print(f"golden: {GOLDEN_F} sweeps of {GOLDEN_AZIMUTH} azimuths, the "
+          f"oracle in {float(oracle.pop('seconds')):.1f} s on the host "
+          f"beside phases 4-6, waited for {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return oracle
+
+
+def golden_phase(dev, card: str, oracle: dict):
+    """The long golden gates of tests/test_golden_parity.py on the card,
+    against the oracle's trajectories (wait_golden_oracle).  Returns the
+    launch counts of its two replays."""
     from loam_tpu_torch import metrics, pipeline
 
     raw, msk = golden_sequence()
-    t0 = time.perf_counter()
-    oracle = run_pipeline(raw, msk)
-    print(f"golden: {GOLDEN_F} sweeps of {GOLDEN_AZIMUTH} azimuths, the "
-          f"oracle in {time.perf_counter() - t0:.1f} s on the host",
-          flush=True)
     raw_t = torch.tensor(raw, device=dev)
     msk_t = torch.tensor(msk, device=dev)
     cfg = golden_config(exact=False)
@@ -1867,6 +1976,219 @@ def scale_out_phase(dev, card: str, batch, raw, msk, default_outs):
     return launches
 
 
+def long_config(hybrid: bool = False):
+    """tests/test_long_sequence.py's CFG: loam_tpu's corrected-semantics
+    mode (fresh Gauss-Newton rows, the whole upward walk) at rings of
+    1024 and tables of 2^15 / 2^17; with hybrid, the
+    map_exact_regather_every=5 cadence of its 100-frame gate."""
+    from loam_tpu_torch.config import LoamConfig
+
+    return dataclasses.replace(
+        LoamConfig(), ring_width=1024, odom_y_scale=1.0,
+        odom_weight_start_iter=0, corner_table_size=1 << 15,
+        surf_table_size=1 << 17, odom_accumulate_rows=False,
+        emulate_upward_scan_truncation=False,
+        map_exact_regather_every=5 if hybrid else 1)
+
+
+def accel_config():
+    """tests/test_streaming_imu.py's CFG."""
+    from loam_tpu_torch.config import LoamConfig
+
+    return dataclasses.replace(
+        LoamConfig(), ring_width=1024, odom_weight_start_iter=0,
+        corner_table_size=1 << 14, surf_table_size=1 << 15,
+        search_buckets=1 << 12, max_corner_from_map=8192,
+        max_surf_from_map=16384)
+
+
+def figure8_sequence():
+    """The seed-9 figure-8 of tests/test_long_sequence._figure8, a NumPy
+    copy: LONG_F sweeps of LONG_AZIMUTH azimuths after a static anchor
+    pose, and the poses (LONG_F + 1, 6)."""
+    from loam_tpu_torch.io import synth
+
+    world = synth.make_world(seed=LONG_SEED)
+    poses = synth.figure8_trajectory(LONG_F, speed=1.0)
+    poses = np.vstack([poses[:1], poses])[: LONG_F + 1]
+    sweeps = [synth.simulate_sweep(world, poses[k], poses[k + 1],
+                                   n_azimuth=LONG_AZIMUTH,
+                                   seed=LONG_SEED + k)
+              for k in range(LONG_F)]
+    return (np.stack([x for x, _ in sweeps]),
+            np.stack([m for _, m in sweeps]), poses)
+
+
+def drift(est, gt) -> tuple[float, float]:
+    """The LOAM paper's drift, the final position error in % of the
+    distance travelled, and the ATE (tests/test_long_sequence._drift_gate)
+    of est (F, 3) against gt (F, 3)."""
+    from loam_tpu_torch import metrics
+
+    dist = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
+    final = float(np.linalg.norm(est[-1] - gt[-1]))
+    return 100.0 * final / dist, metrics.ate_rmse(est, gt)
+
+
+def accel_sequence(cfg):
+    """tests/test_streaming_imu.py's scenario: ACCEL_F sweeps along the
+    accelerating trajectory, the ground truth at each sweep's end, and
+    the 200 Hz samples of its _global_imu as the raw IMU messages
+    (t, rpy, acc), the body rotation formed in float32 as there."""
+    from loam_tpu_torch.io import synth
+    from loam_tpu_torch.utils import rotations
+    from torch_parity import raw_imu
+
+    world = synth.make_world(seed=ACCEL_SEED)
+    pose_fn = synth.accel_trajectory(speed_amp=1.2, period=0.9)
+    t_scans = cfg.scan_period * np.arange(ACCEL_F)
+    n = cfg.max_points
+    sweeps = [synth.simulate_sweep_traj(world, pose_fn, float(t0),
+                                        n_azimuth=LONG_AZIMUTH,
+                                        seed=ACCEL_SEED + k)
+              for k, t0 in enumerate(t_scans)]
+    raw = np.stack([x[:n] for x, _ in sweeps])
+    msk = np.stack([m[:n] for _, m in sweeps])
+    gt = np.stack([pose_fn(t + cfg.scan_period)[3:6] for t in t_scans])
+    imu_t = np.arange(-0.05, ACCEL_F * cfg.scan_period + 0.05,
+                      1.0 / IMU_RATE)
+    h = 1e-3
+    pyr, acc_int = [], []
+    for t in imu_t:
+        p = pose_fn(t)
+        a_w = (pose_fn(t + h)[3:6] - 2 * p[3:6] + pose_fn(t - h)[3:6]) / h**2
+        R = rotations.r_yxz(torch.tensor(p[:3], dtype=torch.float32))
+        pyr.append(p[:3])
+        acc_int.append(R.numpy().T @ a_w)
+    rpy, acc = raw_imu(np.stack(pyr), np.stack(acc_int))
+    return raw, msk, t_scans, gt, (imu_t, rpy, acc)
+
+
+def long_phase(dev, card: str):
+    """Phase 11: loam_tpu's long-horizon gates on the card, in its
+    corrected-semantics mode: (a) the 200-frame figure-8, strict; (b)
+    its first 100 frames at the hybrid cadence; (c) (a) split 120/80
+    around a checkpoint; (d) the online engine on the accelerating
+    trajectory, with and without the IMU.  Returns the launch counts of
+    each run."""
+    from loam_tpu_torch import checkpoint as CK, metrics, pipeline
+    from loam_tpu_torch.runtime.streaming import StreamingEngine
+    from torch_parity import paced_engine_run
+
+    t_phase = time.perf_counter()
+    launches, failed = {}, []
+    t0 = time.perf_counter()
+    raw, msk, poses = figure8_sequence()
+    print(f"long: the figure-8, {LONG_F} sweeps of {LONG_AZIMUTH} azimuths "
+          f"made in {time.perf_counter() - t0:.1f} s on the host",
+          flush=True)
+    raw_t = torch.tensor(raw, device=dev)
+    msk_t = torch.tensor(msk, device=dev)
+    strict, hybrid = long_config(), long_config(hybrid=True)
+
+    def gate(name, outs, frames, max_drift, max_ate, seconds, counts):
+        est = outs.pose_integrated.cpu().numpy()
+        finite = bool(np.isfinite(est).all())
+        d, ate = drift(est[:, 3:6], poses[1:frames + 1, 3:6])
+        print(f"long {name}: {frames} frames in {seconds:.3f} s = "
+              f"{frames / seconds:.2f} frames/s; drift {d:.4f} % of the "
+              f"distance (gate {max_drift}), ATE {ate:.4f} m (gate "
+              f"{max_ate}), finite {finite}; launches {counts} [{card}]",
+              flush=True)
+        if not (finite and d < max_drift and ate < max_ate):
+            failed.append(f"{name}: drift {d} %, ATE {ate} m, finite "
+                          f"{finite}")
+
+    # (a) the 200-frame figure-8, strict
+    whole, launches["long strict"], secs = counted_replay(
+        "long strict", LONG_PATH, ("knn_select",),
+        lambda: pipeline.replay_sweeps(raw_t[:3], msk_t[:3], strict),
+        lambda: pipeline.replay_sweeps(raw_t, msk_t, strict))
+    gate("(a) strict", whole, LONG_F, LONG_DRIFT_GATE, LONG_ATE_GATE, secs,
+         launches["long strict"])
+
+    # (b) its first 100 frames at the hybrid cadence
+    n = LONG_HYBRID_F
+    outs, launches["long hybrid"], secs = counted_replay(
+        "long hybrid", LONG_PATH + ("knn_select",), (),
+        lambda: pipeline.replay_sweeps(raw_t[:3], msk_t[:3], hybrid),
+        lambda: pipeline.replay_sweeps(raw_t[:n], msk_t[:n], hybrid))
+    gate("(b) hybrid", outs, n, LONG_HYBRID_DRIFT_GATE, LONG_HYBRID_ATE_GATE,
+         secs, launches["long hybrid"])
+
+    # (c) (a) split around a checkpoint
+    root = OUT_DIR / "long_checkpoint"
+    shutil.rmtree(root, ignore_errors=True)
+    ms = {}
+
+    def split():
+        s = LONG_SPLIT
+        first, mid = pipeline.replay_sweeps(raw_t[:s], msk_t[:s], strict,
+                                            return_state=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        CK.CheckpointManager(str(root)).save(s, mid, metadata={"frame": s})
+        ms["save"] = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        restored, meta = CK.CheckpointManager(str(root)).restore(
+            None, pipeline.PipelineState.create(strict, dev))
+        torch.cuda.synchronize()
+        ms["restore"] = 1e3 * (time.perf_counter() - t)
+        if meta != {"frame": s}:
+            raise AssertionError(f"long (c): metadata {meta}")
+        rest = pipeline.replay_sweeps(raw_t[s:], msk_t[s:], strict,
+                                      state0=restored)
+        return torch.cat([first.pose_integrated, rest.pose_integrated])
+
+    resumed, launches["long split"], secs = counted_replay(
+        "long split", LONG_PATH, ("knn_select",), lambda: None, split)
+    gap = float((resumed - whole.pose_integrated).abs().max())
+    print(f"long (c) checkpoint: {LONG_F} frames split {LONG_SPLIT}/"
+          f"{LONG_F - LONG_SPLIT}, {secs:.3f} s; save {ms['save']:.1f} ms, "
+          f"restore {ms['restore']:.1f} ms; resumed pose_integrated "
+          f"{gap:.3g} from (a)'s (gate {LONG_RESUME_GATE}); launches "
+          f"{launches['long split']} [{card}]", flush=True)
+    if not gap <= LONG_RESUME_GATE:
+        failed.append(f"(c) resumed {gap} from the whole replay")
+
+    # (d) the online engine on the accelerating trajectory
+    cfg = accel_config()
+    araw, amsk, t_scans, gt, imu = accel_sequence(cfg)
+    ate = {}
+    for name, samples in (("imu", imu), ("raw", None)):
+        def run():
+            eng = StreamingEngine(cfg, device=dev)
+            eng.start()
+            try:
+                return paced_engine_run(eng, araw, amsk, t_scans, samples)[2]
+            finally:
+                eng.stop()
+
+        key = f"online accel {name}"
+        traj, launches[key], secs = counted_replay(
+            key, ONLINE_PATH, ("knn_select",), lambda: None, run)
+        finite = traj.shape[0] == ACCEL_F and bool(np.isfinite(traj).all())
+        ate[name] = metrics.ate_rmse(traj[:, 3:6], gt)
+        print(f"long (d) online, accelerating, {name}: {ACCEL_F} sweeps "
+              f"paced in {secs:.3f} s; ATE {ate[name]:.4f} m vs the ground "
+              f"truth; {traj.shape[0]} poses, finite {finite}; launches "
+              f"{launches[key]} [{card}]", flush=True)
+        if not finite:
+            failed.append(f"(d) {name}: {traj.shape[0]} poses, finite "
+                          f"{finite}")
+    print(f"long (d): ATE with the IMU {ate['imu']:.4f} m (gate "
+          f"{ACCEL_ATE_GATE}), without {ate['raw']:.4f} m [{card}]",
+          flush=True)
+    if not (ate["imu"] < ACCEL_ATE_GATE and ate["imu"] < ate["raw"] + 1e-6):
+        failed.append(f"(d) ATE {ate['imu']} m with the IMU, {ate['raw']} m "
+                      "without")
+    print(f"long phase: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    if failed:
+        raise AssertionError(f"phase 11 failed its gates: {failed}")
+    return launches
+
+
 def fetch(url: str) -> bytes:
     """GET over loopback."""
     import urllib.request
@@ -1896,11 +2218,16 @@ def main() -> int:
     if len(sys.argv) > 1:
         import argparse
 
-        ap = argparse.ArgumentParser(description="one rank of phase 10")
-        ap.add_argument("--rank", type=int, required=True)
-        ap.add_argument("--ranks", type=int, required=True)
-        ap.add_argument("--port", type=int, required=True)
+        ap = argparse.ArgumentParser(
+            description="a helper process of chip_smoke.py: phase 7's "
+                        "oracle, or one rank of phase 10")
+        ap.add_argument("--golden-oracle", metavar="OUT")
+        ap.add_argument("--rank", type=int)
+        ap.add_argument("--ranks", type=int)
+        ap.add_argument("--port", type=int)
         a = ap.parse_args()
+        if a.golden_oracle:
+            return golden_oracle(a.golden_oracle)
         return scale_rank(a.rank, a.ranks, a.port)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1923,6 +2250,7 @@ def main() -> int:
     imu = imu_inputs(dev)
     rows = kernel_phase(dev, raw, msk, replay_config("default"), imu)
     print_rows(rows, card)
+    golden = start_golden_oracle()
 
     from golden.pipeline import run_pipeline
 
@@ -1954,7 +2282,8 @@ def main() -> int:
 
     launches["imu"] = imu_phase(dev, card, imu)
     launches["batch"], batch = batch_phase(dev, card)
-    launches["golden"], launches["golden hybrid"] = golden_phase(dev, card)
+    launches["golden"], launches["golden hybrid"] = golden_phase(
+        dev, card, wait_golden_oracle(golden))
     cli_synthetic_phase(card)
     launches["cli bag"], bag = cli_bag_phase(dev, card)
     checkpoint_phase(dev, card, bag)
@@ -1962,19 +2291,26 @@ def main() -> int:
                                  oracle, bag))
     launches.update(scale_out_phase(dev, card, batch, raw, msk,
                                     replays["default"]))
+    launches.update(long_phase(dev, card))
 
-    # the windowed k-NN runs at k=5 in the strict replay, the entry and
+    # the windowed k-NN runs at k=5 in the strict replays, the entry and
     # the online engine only, and at k=8 in the hybrid ones (phase 10's
-    # replays too); every other count sums over the replays
+    # replays too); odom_corr walks untruncated in phase 11's replays
+    # only; every other count sums over the replays
     k8_runs = ("hybrid", "batch", "golden hybrid", "cli bag", "scale-out a",
-               "scale-out b", "scale-out c")
+               "scale-out b", "scale-out c", "long hybrid")
     online = [n for n in launches if n.startswith("online")]
     for r in rows:
         if r["name"] == "knn_topk_dyn":
-            r["launches"] = sum(launches[n]["knn_topk_dyn"]
-                                for n in ["default", "entry"] + online)
+            r["launches"] = sum(
+                launches[n]["knn_topk_dyn"] for n in
+                ["default", "entry", "long strict", "long split"] + online)
         elif r["name"] == "knn_topk_dyn_k8":
             r["launches"] = sum(launches[n]["knn_topk_dyn"] for n in k8_runs)
+        elif r["name"] in ("odom_corr", "odom_corr_untruncated"):
+            r["launches"] = sum(
+                c["odom_corr"] for n, c in launches.items()
+                if (n in UNTRUNCATED_RUNS) == (r["name"] != "odom_corr"))
         else:
             r["launches"] = sum(c[r["counter"]] for c in launches.values())
         if r["launches"] <= 0:

@@ -34,6 +34,7 @@ from . import map_store, resolve_device
 from .config import LoamConfig
 from .ops import residuals
 from .ops.cuda.knn_topk import KERNEL_K, knn_points
+from .ops.cuda.kselect import MAX_C, MAX_K
 from .ops.voxel import voxel_downsample
 from .types import (PointCloud, add_scenario_axis, drop_scenario_axis,
                     per_scenario)
@@ -86,14 +87,37 @@ def _hybrid(cfg: LoamConfig) -> bool:
 
 
 def check_mapping_config(cfg: LoamConfig) -> None:
-    """The hybrid gather's k must be one the kNN kernel is built for."""
-    if _hybrid(cfg) and max(cfg.map_exact_cache_k, cfg.map_knn) \
-            not in KERNEL_K:
-        raise ValueError(
-            f"map_exact_cache_k={cfg.map_exact_cache_k} (with map_knn="
-            f"{cfg.map_knn}): the hybrid gather needs max(map_exact_cache_k"
-            f", map_knn) in {KERNEL_K}, the k values csrc/knn_topk.cu is "
-            "instantiated for")
+    """Refuse, before any work and on every device, a k the card's
+    neighbour kernels are not built for: the exact paths' k-NN
+    (csrc/knn_topk.cu, k in KERNEL_K) and the cell path's two selections
+    (csrc/kselect.cu, 1 <= k <= min(C, MAX_K) and C <= MAX_C)."""
+    if _hybrid(cfg):
+        if max(cfg.map_exact_cache_k, cfg.map_knn) not in KERNEL_K:
+            raise ValueError(
+                f"map_exact_cache_k={cfg.map_exact_cache_k} (with map_knn="
+                f"{cfg.map_knn}): the hybrid gather needs max("
+                f"map_exact_cache_k, map_knn) in {KERNEL_K}, the k values "
+                "csrc/knn_topk.cu is instantiated for")
+    elif cfg.map_exact_knn:
+        if cfg.map_knn not in KERNEL_K:
+            raise ValueError(
+                f"map_knn={cfg.map_knn}: the strict exact k-NN needs map_knn "
+                f"in {KERNEL_K}, the k values csrc/knn_topk.cu is "
+                "instantiated for")
+    else:
+        C = 27 * cfg.search_bucket_cap
+        for k, c, what in (
+                (cfg.knn_candidates, C,
+                 f"knn_candidates={cfg.knn_candidates} from 27 * "
+                 f"search_bucket_cap = C={C} candidates"),
+                (cfg.map_knn, cfg.knn_candidates,
+                 f"map_knn={cfg.map_knn} from C=knn_candidates="
+                 f"{cfg.knn_candidates} candidates")):
+            if not (1 <= k <= min(c, MAX_K) and c <= MAX_C):
+                raise ValueError(
+                    f"{what}: the cell-bucket map's selection needs 1 <= k "
+                    f"<= min(C, {MAX_K}) and C <= {MAX_C}, the sizes "
+                    "csrc/kselect.cu takes")
 
 
 def _corner_map_residuals(nn_fn, q_body, q_mask, tobe, cfg: LoamConfig):

@@ -24,7 +24,7 @@ from loam_tpu_torch.ops.cuda import kselect as KS
 from loam_tpu_torch.ops.cuda import odom_corr as OC
 from loam_tpu_torch.ops.cuda import select_walk as SW
 
-from torch_parity import (kselect_argsort, kselect_lattice_case,
+from torch_parity import (REFUSED_K, kselect_argsort, kselect_lattice_case,
                           walk_kwargs, walk_meta_case, windowed_knn_case,
                           windowed_knn_scalar)
 
@@ -458,6 +458,29 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         KS.knn_select(torch.zeros(4, 8, 3, device=cuda),
                       torch.ones(4, 8, dtype=torch.bool, device=cuda),
                       torch.zeros(4, 3, device=cuda), 9)
+
+
+@pytest.mark.parametrize("over,match", REFUSED_K,
+                         ids=["strict", "hybrid", "cells_k", "cells_C",
+                              "cells_rerank"])
+def test_config_refusals_match_the_cpu(cuda, over, match):
+    """A k the kernels are not built for is refused on the card with the
+    CPU's ValueError, before any kernel launches."""
+    from loam_tpu_torch import pipeline
+
+    cfg = dataclasses.replace(LoamConfig(), **over)
+    raw = np.zeros((1, cfg.max_points, 3), np.float32)
+    msk = np.ones(raw.shape[:2], bool)
+    wrappers = (KN.knn_topk, KN.knn_topk_dyn, OC.odom_corr, SW.select_walk,
+                KS.knn_select)
+    before = [fn.launches for fn in wrappers]
+    errors = []
+    for device in ("cpu", cuda):
+        with pytest.raises(ValueError, match=match) as err:
+            pipeline.replay_sweeps(raw, msk, cfg, device=device)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    assert [fn.launches for fn in wrappers] == before
 
 
 def test_cli_runs_on_card(cuda, tmp_path):

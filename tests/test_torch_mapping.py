@@ -26,7 +26,7 @@ from loam_tpu_torch.state import (pipeline_state_from_numpy,
                                   pipeline_state_to_numpy)
 from loam_tpu_torch.types import PointCloud
 
-from torch_parity import (assert_same_map as _assert_same_map,
+from torch_parity import (REFUSED_K, assert_same_map as _assert_same_map,
                           cloud_to_torch, make_sweeps, parity_cfg,
                           pose_errors, to_port_cfg, tree_to_numpy)
 
@@ -167,3 +167,29 @@ def test_surround_cloud_and_unported_modes(mid_run):
         TMap.mapping_step(tstate.map, torch.zeros(6),
                           PointCloud.zeros(cfg.max_less_sharp),
                           PointCloud.zeros(cfg.max_less_flat), bad)
+
+
+@pytest.mark.parametrize("over,match", REFUSED_K,
+                         ids=["strict", "hybrid", "cells_k", "cells_C",
+                              "cells_rerank"])
+def test_config_refuses_k_the_kernels_lack(monkeypatch, over, match):
+    """A k that csrc/knn_topk.cu or csrc/kselect.cu is not built for is
+    refused before any frame is processed, by the replay and by the
+    streaming engine, on the CPU as on the card (test_torch_cuda.py),
+    though the CPU's plain versions could run it."""
+    import dataclasses
+
+    from loam_tpu_torch import pipeline as TP
+    from loam_tpu_torch.runtime.streaming import StreamingEngine
+
+    def no_work(*args, **kw):
+        raise AssertionError("a frame was processed")
+
+    monkeypatch.setattr(TP, "ingest_frames", no_work)
+    cfg = dataclasses.replace(to_port_cfg(parity_cfg()), **over)
+    raw = np.zeros((1, cfg.max_points, 3), np.float32)
+    with pytest.raises(ValueError, match=match):
+        TP.replay_sweeps(raw, np.ones(raw.shape[:2], bool), cfg,
+                         device="cpu")
+    with pytest.raises(ValueError, match=match):
+        StreamingEngine(cfg, device="cpu")

@@ -55,6 +55,21 @@ def parity_cfg(**kw):
     return dataclasses.replace(_tiny_cfg(), **base)
 
 
+# configurations loam_tpu runs and the port refuses up front, because a
+# neighbour kernel of the card is not built for their k: (config
+# changes, a pattern of the ValueError), one each for the strict exact
+# k-NN, the hybrid gather, and the cell path's gather (k > 32, C > 1024)
+# and re-rank (k > C)
+REFUSED_K = (
+    (dict(map_knn=3), r"map_knn=3: the strict exact k-NN"),
+    (dict(map_exact_regather_every=5, map_exact_cache_k=12),
+     r"map_exact_cache_k=12 .*\(1, 5, 8\)"),
+    (dict(map_exact_knn=False, knn_candidates=40), r"knn_candidates=40"),
+    (dict(map_exact_knn=False, search_bucket_cap=40), r"C=1080"),
+    (dict(map_exact_knn=False, knn_candidates=4), r"map_knn=5 from C="),
+)
+
+
 def to_port_cfg(jcfg) -> PortConfig:
     """The port's LoamConfig with the fields of a loam_tpu one."""
     return PortConfig(**dataclasses.asdict(jcfg))
