@@ -125,11 +125,25 @@ Phases, each of which raises (non-zero exit) on failure:
      streaming engine paced over 8 sweeps of the accelerating trajectory
      with and without its 200 Hz IMU samples: ATE < 6 cm with the IMU and
      no worse than without.  Prints frames/s, drift, ATE, the resume gap,
-     the checkpoint milliseconds and the phase's seconds.
+     the checkpoint milliseconds and the phase's seconds;
+ 12. the dense cell, a VLP-16 in dual-return mode at 10 Hz: 13 sweeps of
+     3600 azimuths (the default cell's recipe) in rings of 3600, wider
+     than 2048 and not a multiple of 32, replayed (a) strict, (b) at the
+     hybrid cadence with map_exact_cache_k=16 and (c) on the cell-bucket
+     map at search_bucket_cap=48 (C = 1296) and knn_candidates=40, each
+     within 5 cm integrated ATE of the NumPy oracle (run in a process of
+     its own beside the earlier phases) and each launching its new
+     kernel instances (the walk's 4 words a lane; K=16; C=1296, k=40);
+     then (d) `python -m loam_tpu_torch --synthetic 8 --ring-width 1800
+     --golden-compare` as a subprocess, its verdict under 5 cm.  Prints
+     what the feature caps cut, the local map's overflow, frames/s.
 The kernel rows carry the batch's shapes too (B=8 scenarios), each
 compared bit for bit; odom_corr_untruncated is odom_corr's walk without
 the upward-scan truncation, at the corner and surf shapes, its launches
-those of phase 11's figure-8 replays.  The last lines are the smoke's
+those of phase 11's figure-8 replays; knn_topk_dyn_k16, select_walk_wide
+and kselect_dense are the windowed k-NN, the walk and kselect at the
+shapes of phase 12 and at other k and widths, their launches phase
+12's.  The last lines are the smoke's
 seconds, the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -252,7 +266,7 @@ SCALE_TP_B = 2              # scenarios of the row-parallel replay (c)
 SCALE_TP_GATE = 5e-4        # loam_tpu's tp=2 bound (tests/test_parallel.py)
 SCALE_SIZES = (1, 2)        # dp sizes of the weak-scaling harness (e)
 RANK_TIMEOUT = 400          # s, the spawned ranks together
-ORACLE_TIMEOUT = 600        # s, phase 7's oracle after phase 6 has ended
+ORACLE_TIMEOUT = 600        # s, an oracle after the phases before its own
 
 # loam_tpu's long-horizon gates (phase 11): the figure-8 of
 # tests/test_long_sequence.py:29-160 and the accelerating online IMU run
@@ -273,6 +287,33 @@ UNTRUNCATED_RUNS = ("long strict", "long hybrid", "long split")
 ACCEL_F = 8
 ACCEL_SEED = 3
 ACCEL_ATE_GATE = 0.06        # m, with the IMU
+# the dense cell (phase 12): a VLP-16 in dual-return mode at 10 Hz, about
+# 3,600 returns a ring a sweep: the default cell's recipe (seed 21,
+# straight, 0.9 m/s, 0.1 rad/s) at twice its azimuths, in rings of 3600
+# (wider than 2048 and not a multiple of 32); tables 2^17 / 2^18
+DENSE_F = 13
+DENSE_AZIMUTH = 3600
+DENSE_WORDS = 4              # the walk's words a lane at rings of 3600
+# name -> (config changes, wrappers that must launch, must not launch,
+# the kernel instances that must launch: {wrapper: [tally keys]})
+DENSE_MODES = {
+    "dense strict": ({}, ("knn_topk", "knn_topk_dyn", "odom_corr",
+                          "select_walk"), ("knn_select",),
+                     {"knn_topk_dyn": [5], "select_walk": [DENSE_WORDS]}),
+    "dense hybrid": (dict(map_exact_regather_every=5, map_exact_cache_k=16),
+                     ("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk",
+                      "knn_select"), (),
+                     {"knn_topk_dyn": [16], "knn_select": [(16, 5)],
+                      "select_walk": [DENSE_WORDS]}),
+    "dense cells": (dict(map_exact_knn=False, search_bucket_cap=48,
+                         knn_candidates=40),
+                    ("knn_topk", "odom_corr", "select_walk", "knn_select"),
+                    ("knn_topk_dyn",),
+                    {"knn_select": [(1296, 40), (40, 5)],
+                     "select_walk": [DENSE_WORDS]}),
+}
+DENSE_CLI_F = 8
+DENSE_CLI_WIDTH = 1800       # 900 azimuths in rings of 56.25 words
 POSE_NAMES = ("pose_odom", "pose_aft", "pose_integrated")
 KERNELS = ("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk",
            "knn_select")
@@ -396,14 +437,14 @@ def _compare(name, kernel_out, plain_out):
     return err
 
 
-def make_sweeps(frames: int = FRAMES):
+def make_sweeps(frames: int = FRAMES, n_azimuth: int = N_AZIMUTH):
     from loam_tpu_torch.io import synth
 
     world = synth.make_world(seed=SEED)
     poses = synth.straight_trajectory(frames, speed=0.9, yaw_rate=0.1)
     poses = np.vstack([poses[:1], poses])[: frames + 1]
     sweeps = [synth.simulate_sweep(world, poses[k], poses[k + 1],
-                                   n_azimuth=N_AZIMUTH, seed=SEED + k)
+                                   n_azimuth=n_azimuth, seed=SEED + k)
               for k in range(frames)]
     raw = np.stack([s[0] for s in sweeps]).astype(np.float32)
     return raw, np.stack([s[1] for s in sweeps])
@@ -455,13 +496,27 @@ def _library_knn(q, ref, k):
     return torch.cdist(q, ref).topk(k, dim=-1, largest=False)
 
 
-def kernel_phase(dev, raw, msk, cfg, imu):
-    """Each kernel vs its plain version at the replays' shapes.  Returns
-    one row a kernel (its largest shape), with the other shapes' rows
-    under "other_shapes"."""
+def kernel_phase(dev, raw, msk, cfg, imu, dense):
+    """Each kernel vs its plain version at the replays' shapes (dense:
+    phase 12's sweeps).  Returns one row a kernel (its largest shape),
+    with the other shapes' rows under "other_shapes"."""
+    from loam_tpu_torch.ops.cuda import _build
     from loam_tpu_torch.ops.cuda import knn_topk as KN
     from loam_tpu_torch.ops.cuda import kselect as KS
     from loam_tpu_torch.ops.cuda import odom_corr as OC
+    from loam_tpu_torch.ops.cuda import select_walk as SW
+
+    # the limits the configuration check holds (it runs without the
+    # libraries) are the ones the libraries report
+    for lib, symbol, want in (("knn_topk", "max_k", KN.MAX_K),
+                              ("kselect", "max_c", KS.MAX_C),
+                              ("select_walk", "max_w", SW.MAX_W)):
+        got = _build.entry(lib, (), symbol)()
+        if got != want:
+            raise AssertionError(f"{lib}_{symbol}() = {got}, the wrapper "
+                                 f"says {want}")
+        print(f"limit {lib}_{symbol}: {got}, as the wrapper says",
+              flush=True)
 
     rng = np.random.default_rng(SEED)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -530,7 +585,8 @@ def kernel_phase(dev, raw, msk, cfg, imu):
         B, Q, M = q.shape[0], q.shape[1], ref.shape[1]
         nq_t = torch.full((B,), n_q, **i32)
         nr_t = torch.full((B,), n_ref_i, **i32)
-        run_k = lambda: KN._launch(q, ref, nq_t, nr_t, k, t_lo, t_hi, tq, tm)
+        run_k = lambda: KN._launch(q, ref, nq_t, nr_t, k, t_lo, t_hi, tq,
+                                   tm)[:2]
         run_p = lambda: KN.knn_topk_plain(q, ref, nq_t, nr_t, k, t_lo, t_hi,
                                           tq=tq, tm=tm)
         # references each live query block really scans
@@ -651,7 +707,28 @@ def kernel_phase(dev, raw, msk, cfg, imu):
         add(name, "odom_corr", "loam_tpu_torch/csrc/odom_corr.cu",
             "loam_tpu/ops/pallas/odom_corr.py:65", shapes)
 
+    # ---- knn_topk_dyn at k other than 1, 5 and 8: the register lists of
+    # K = 3 and 12 and the shared-memory lists at k = 40 on the lattice
+    # shape, then the dense cell's hybrid gather (phase 12 b:
+    # map_exact_cache_k = 16, margin 2 m) at the caps its sweeps fill,
+    # the whole surf stack against 50000 map points
+    Q, M = 8 * tq, 8 * tm
+    t_lo = torch.tensor([[0, 7, 3, 2, -1, 0, 0, 0]], **i32)
+    t_hi = torch.tensor([[8, 8, 3, 5, 99, 8, 8, 8]], **i32)
+    q_l = torch.tensor(lattice(rng, (1, Q, 3)), device=dev)
+    r_l = torch.tensor(lattice(rng, (1, M, 3)), device=dev)
+    shapes = [windowed("knn_topk_dyn_k16", k, q_l, r_l, 4 * tq + tq // 2 + 1,
+                       7 * tm + 3, t_lo, t_hi, tq, tm, ",lattice")
+              for k in (3, 12, 40)]
+    q, ref, t_lo, t_hi = sorted_cloud(1, 8192, 65536, 8192, 50000, 2.0, tq,
+                                      tm)
+    shapes.append(windowed("knn_topk_dyn_k16", 16, q, ref, 8192, 50000, t_lo,
+                           t_hi, tq, tm))
+    add("knn_topk_dyn_k16", "knn_topk_dyn", "loam_tpu_torch/csrc/knn_topk.cu",
+        "loam_tpu/ops/pallas/knn_topk.py:133", shapes)
+
     rows.append(select_walk_row(dev, raw, msk, cfg, imu))
+    rows.append(wide_walk_row(dev, raw, msk, dense))
 
     # ---- kselect, every output compared exactly: lattice candidates
     # (exact ties in every row), the hybrid re-rank (C=8), the cell
@@ -659,12 +736,11 @@ def kernel_phase(dev, raw, msk, cfg, imu):
     # round: what the other 23 rounds of the next shape cost) and at k=24
     # (C=864: ~60% valid, the second half of every row's cells
     # duplicated, some rows with fewer than k valid); the hybrid re-rank
-    # also at the batch's BATCH_B x 8192 rows
-    shapes = []
-    for Q, C, k, ties in ((8200, 24, 5, True), (1024, 864, 24, True),
-                          (8192, 8, 5, False), (BATCH_B * 8192, 8, 5, False),
-                          (8192, 24, 5, False), (2048, 864, 1, False),
-                          (2048, 864, 24, False)):
+    # also at the batch's BATCH_B x 8192 rows.  Then the dense cell's
+    # (phase 12 c): lattice candidates at its gather shape, its re-rank
+    # (C=40, k=5) and its gather chunk (search_bucket_cap 48: C=1296,
+    # k=40)
+    def selection(Q, C, k, ties):
         if ties:
             q_np = lattice(rng, (Q, 3))
             cand_np = lattice(rng, (Q, C, 3), half=3)
@@ -673,7 +749,7 @@ def kernel_phase(dev, raw, msk, cfg, imu):
             cand_np = (q_np[:, None, :]
                        + rng.normal(0, 0.8, (Q, C, 3))).astype(np.float32)
         valid_np = rng.uniform(size=(Q, C)) < 0.6
-        if C == 864:
+        if C >= 864:
             cand_np[:, C // 2:] = cand_np[:, :C // 2]
             valid_np[::7, max(k - 4, 0):] = False   # fewer than k valid
             valid_np[::64] = False                  # none at all
@@ -689,18 +765,90 @@ def kernel_phase(dev, raw, msk, cfg, imu):
             return torch.gather(cand, 1, idx[..., None].expand(-1, -1, 3)), d2
 
         n_valid = int(valid.sum())
-        shapes.append(dict(
+        return dict(
             shape=f"Q={Q},C={C},k={k},valid={n_valid}" + (",lattice" * ties),
             max_abs_err=_compare("kselect", run_k(), run_p()),
             ms=time_ms(run_k), device_ms=device_ms(run_k),
             plain_ms=time_ms(run_p), library_ms=time_ms(run_lib),
             # 8 flops a valid candidate, then k scans of C compares
             **bound(Q * C * 13 + Q * 12 + Q * k * 16,
-                    8 * n_valid + Q * C * k)))
-    add("kselect", "knn_select", "loam_tpu_torch/csrc/kselect.cu",
-        "loam_tpu/ops/pallas/kselect.py:33", shapes)
+                    8 * n_valid + Q * C * k))
+
+    for name, cases in (
+            ("kselect", ((8200, 24, 5, True), (1024, 864, 24, True),
+                         (8192, 8, 5, False), (BATCH_B * 8192, 8, 5, False),
+                         (8192, 24, 5, False), (2048, 864, 1, False),
+                         (2048, 864, 24, False))),
+            ("kselect_dense", ((1024, 1296, 40, True), (8192, 40, 5, False),
+                               (2048, 1296, 40, False)))):
+        add(name, "knn_select", "loam_tpu_torch/csrc/kselect.cu",
+            "loam_tpu/ops/pallas/kselect.py:33",
+            [selection(*case) for case in cases])
     torch.cuda.synchronize()
     return rows
+
+
+def walk_inputs(sweep, cfg):
+    """The walk's inputs for every ring of `sweep` at cfg: corner and flat
+    meta, the pre-picked masks, the wrapper's keywords, and what the
+    serial NumPy walk of tests/torch_parity counts for them: candidates
+    walked (meta words read), picks, and the kernel's rounds (32-candidate
+    chunks plus picks)."""
+    from loam_tpu_torch.ops import features as FT
+    from torch_parity import serial_walk, walk_kwargs
+
+    curv, gap, pre, counts = FT.selection_inputs(sweep, cfg)
+    W = cfg.ring_width
+    cm, fm = FT.walk_meta(curv.reshape(-1, W), gap.reshape(-1, W),
+                          counts.reshape(-1), cfg)
+    pre = pre.reshape(-1, W)
+    kw = walk_kwargs(cfg, W)
+    _, need = serial_walk(cm.cpu().numpy(), fm.cpu().numpy(),
+                          pre.cpu().numpy(), **kw)
+    return cm, fm, pre, kw, need
+
+
+def walk_shape(rings, B, R, note=""):
+    """select_walk against its plain version on B x R of `rings`
+    (walk_inputs; tiled when B x R is more), every output compared
+    exactly.  Returns the shape's measurement dict."""
+    from loam_tpu_torch.ops.cuda import select_walk as SW
+
+    cm_all, fm_all, pre, kw, need = rings
+    W = kw["W"]
+    dev = cm_all.device
+    idx = torch.arange(B * R, device=dev) % cm_all.shape[0]
+    cm = cm_all[idx].reshape(B, R, -1).contiguous()
+    fm = fm_all[idx].reshape(B, R, -1).contiguous()
+    p0 = SW.pack_bits(pre[idx]).reshape(B, R, -1)
+    n = {k: int(v[idx.cpu().numpy()].sum()) for k, v in need.items()}
+    max_rounds = int(need["rounds"][idx.cpu().numpy()].max())
+    run_k = lambda: SW._launch(cm, fm, p0, **kw)[0]
+    run_p = lambda: SW.select_walk_plain(cm, fm, p0, **kw)
+    return dict(
+        shape=f"B={B},R={R},W={W},walked={n['walked']},"
+              f"picks={n['picks']},rounds={n['rounds']},"
+              f"max_rounds={max_rounds}" + note,
+        max_abs_err=_compare("select_walk", run_k(), run_p()),
+        ms=time_ms(run_k), device_ms=device_ms(run_k),
+        plain_ms=time_ms(run_p, reps=5), library_ms=None,
+        # 4 bytes a walked meta word and a uint32 word of each bit-field
+        # (pre-picked in, four out: the walk needs no more, whatever the
+        # wrapper's int64 holds); about 20 integer operations a walked
+        # candidate
+        **bound(4 * n["walked"] + 5 * 4 * B * R * SW.words_for(W),
+                20 * n["walked"]))
+
+
+def walk_row(name, shapes):
+    """A kernels JSON row of select_walk, its own shape the last."""
+    torch.cuda.synchronize()
+    return dict(name=name, counter="select_walk", route="cuda",
+                source="loam_tpu_torch/csrc/select_walk.cu",
+                replaces="loam_tpu/ops/pallas/select_walk.py:81",
+                **{**shapes[-1], "max_abs_err": max(
+                    s["max_abs_err"] for s in shapes)},
+                other_shapes=shapes[:-1])
 
 
 def select_walk_row(dev, raw, msk, cfg, imu):
@@ -708,24 +856,8 @@ def select_walk_row(dev, raw, msk, cfg, imu):
     batch (B=8 scenarios x 17 frames, filled by tiling the replay's rings),
     every ring of the IMU replay (imu_inputs: deskewed, rings of 1024) and
     every ring of the replay (the row's own shape); every output compared
-    exactly.  The serial NumPy walk of tests/torch_parity counts what
-    these inputs need: candidates walked (meta words read), picks, and
-    the kernel's rounds (32-candidate chunks plus picks)."""
+    exactly (walk_shape)."""
     from loam_tpu_torch import frontend, pipeline
-    from loam_tpu_torch.ops import features as FT
-    from loam_tpu_torch.ops.cuda import select_walk as SW
-    from torch_parity import serial_walk, walk_kwargs
-
-    def walk_inputs(sweep, cfg):
-        curv, gap, pre, counts = FT.selection_inputs(sweep, cfg)
-        W = cfg.ring_width
-        cm, fm = FT.walk_meta(curv.reshape(-1, W), gap.reshape(-1, W),
-                              counts.reshape(-1), cfg)
-        pre = pre.reshape(-1, W)
-        kw = walk_kwargs(cfg, W)
-        _, need = serial_walk(cm.cpu().numpy(), fm.cpu().numpy(),
-                              pre.cpu().numpy(), **kw)
-        return cm, fm, pre, kw, need
 
     replay_rings = walk_inputs(frontend.ingest_sweep(
         torch.tensor(raw, device=dev), torch.tensor(msk, device=dev), cfg),
@@ -734,47 +866,49 @@ def select_walk_row(dev, raw, msk, cfg, imu):
     imu_rings = walk_inputs(pipeline.ingest_frames(
         iraw, imsk, imu_config(), stream, t_scans)[0], imu_config())
     n_rings, n_imu = replay_rings[0].shape[0], imu_rings[0].shape[0]
+    return walk_row("select_walk", [
+        walk_shape(replay_rings, 1, cfg.n_scans),
+        walk_shape(replay_rings, 8, 17 * cfg.n_scans),
+        walk_shape(imu_rings, 1, n_imu, ",imu"),
+        walk_shape(replay_rings, 1, n_rings)])
+
+
+def wide_walk_row(dev, raw, msk, dense):
+    """select_walk at widths past 2048 or not a multiple of 32: every
+    ring of phase 4's sweeps in rings of 1800 (phase 12 d's width; 57
+    words, 2 a lane), of 4 sweeps of 7200 azimuths (a
+    VLP-16 at 300 RPM in dual-return mode) in rings of 8192 (8 words a
+    lane), and of the dense cell's sweeps in rings of 3600 (113 words, 4
+    a lane: the row's own shape)."""
+    from loam_tpu_torch import frontend
+    from loam_tpu_torch.io import synth
+
+    def rings(raw, msk, cfg):
+        return walk_inputs(frontend.ingest_sweep(
+            torch.tensor(raw, device=dev), torch.tensor(msk, device=dev),
+            cfg), cfg)
+
+    world = synth.make_world(seed=SEED)
+    poses = synth.straight_trajectory(4, speed=0.9, yaw_rate=0.1)
+    poses = np.vstack([poses[:1], poses])[:5]
+    sweeps = [synth.simulate_sweep(world, poses[k], poses[k + 1],
+                                   n_azimuth=2 * DENSE_AZIMUTH, seed=SEED + k)
+              for k in range(4)]
+    fast = (np.stack([x for x, _ in sweeps]).astype(np.float32),
+            np.stack([m for _, m in sweeps]))
     shapes = []
-    for rings, B, R, note in ((replay_rings, 1, cfg.n_scans, ""),
-                              (replay_rings, 8, 17 * cfg.n_scans, ""),
-                              (imu_rings, 1, n_imu, ",imu"),
-                              (replay_rings, 1, n_rings, "")):
-        cm_all, fm_all, pre, kw, need = rings
-        W = kw["W"]
-        idx = torch.arange(B * R, device=dev) % cm_all.shape[0]
-        cm = cm_all[idx].reshape(B, R, -1).contiguous()
-        fm = fm_all[idx].reshape(B, R, -1).contiguous()
-        p0 = SW.pack_bits(pre[idx]).reshape(B, R, -1)
-        n = {k: int(v[idx.cpu().numpy()].sum()) for k, v in need.items()}
-        max_rounds = int(need["rounds"][idx.cpu().numpy()].max())
-        run_k = lambda: SW._launch(cm, fm, p0, **kw)
-        run_p = lambda: SW.select_walk_plain(cm, fm, p0, **kw)
-        shapes.append(dict(
-            shape=f"B={B},R={R},W={W},walked={n['walked']},"
-                  f"picks={n['picks']},rounds={n['rounds']},"
-                  f"max_rounds={max_rounds}" + note,
-            max_abs_err=_compare("select_walk", run_k(), run_p()),
-            ms=time_ms(run_k), device_ms=device_ms(run_k),
-            plain_ms=time_ms(run_p, reps=5), library_ms=None,
-            # 4 bytes a walked meta word and a uint32 word of each
-            # bit-field (pre-picked in, four out: the walk needs no more,
-            # whatever the wrapper's int64 holds); about 20 integer
-            # operations a walked candidate
-            **bound(4 * n["walked"] + 5 * 4 * B * R * (W // 32),
-                    20 * n["walked"])))
-    torch.cuda.synchronize()
-    return dict(name="select_walk", counter="select_walk", route="cuda",
-                source="loam_tpu_torch/csrc/select_walk.cu",
-                replaces="loam_tpu/ops/pallas/select_walk.py:81",
-                **{**shapes[-1], "max_abs_err": max(
-                    s["max_abs_err"] for s in shapes)},
-                other_shapes=shapes[:-1])
+    for (r, m), W in (((raw, msk), 1800), (fast, 8192), (dense, 3600)):
+        cfg = dataclasses.replace(dense_config(), ring_width=W)
+        ring_set = rings(r, m, cfg)
+        shapes.append(walk_shape(ring_set, 1, ring_set[0].shape[0]))
+    return walk_row("select_walk_wide", shapes)
 
 
 def counted_replay(name, required, forbidden, warm_up, run):
     """warm_up() (library handles, allocator; uncounted), then run() with
     every launch count zeroed just before it and read just after it.
-    Returns (outputs, launch counts, seconds).  Raises when a kernel of
+    Returns (outputs, launch counts, seconds); counts["instances"] holds
+    the launches by kernel instance.  Raises when a kernel of
     this replay's path was not launched, or one outside it was."""
     from loam_tpu_torch.ops.cuda import knn_topk as KN
     from loam_tpu_torch.ops.cuda import kselect as KS
@@ -786,13 +920,21 @@ def counted_replay(name, required, forbidden, warm_up, run):
     wrappers = {"knn_topk": KN.knn_topk, "knn_topk_dyn": KN.knn_topk_dyn,
                 "odom_corr": OC.odom_corr, "select_walk": SW.select_walk,
                 "knn_select": KS.knn_select}
+    # launches by kernel instance: k of the windowed k-NN, (C, k) of
+    # kselect, the walk's words a lane
+    tallies = {"knn_topk_dyn": KN.knn_topk_dyn.by_k,
+               "knn_select": KS.knn_select.by_shape,
+               "select_walk": SW.select_walk.by_words}
     for fn in wrappers.values():
         fn.launches = 0
+    for tally in tallies.values():
+        tally.clear()
     t0 = time.perf_counter()
     outs = run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {n: fn.launches for n, fn in wrappers.items()}
+    counts["instances"] = {n: dict(t) for n, t in tallies.items()}
     missing = [n for n in required if counts[n] <= 0]
     if missing:
         raise AssertionError(f"{name} replay never launched {missing}")
@@ -963,8 +1105,8 @@ def batch_phase(dev, card: str):
             lambda: pipeline.replay_sweeps(raw_t[b], msk_t[b], cfg))
         singles.append(one)
         single_s += t
-        for n, v in c.items():
-            single_counts[n] = single_counts.get(n, 0) + v
+        for n in KERNELS:
+            single_counts[n] = single_counts.get(n, 0) + c[n]
     # host reads of each mapping frame: the batch's, and the most any
     # single replay makes at that frame
     _, batch_reads = mapping_host_reads(
@@ -1013,37 +1155,38 @@ def batch_phase(dev, card: str):
     return counts, (raw, msk, outs)
 
 
-def golden_oracle(out: str) -> int:
-    """Phase 7's NumPy oracle in a process of its own, started by
-    start_golden_oracle as `chip_smoke.py --golden-oracle OUT`: the
-    golden sequence through tests/golden/pipeline.run_pipeline, its
+def oracle_process(name: str, out: str) -> int:
+    """A NumPy oracle in a process of its own, started by start_oracle as
+    `chip_smoke.py --oracle NAME OUT`: phase 7's golden sequence or phase
+    12's dense sweeps through tests/golden/pipeline.run_pipeline, its
     trajectories and seconds saved to OUT (.npz)."""
     sys.path.insert(0, str(ROOT / "tests"))
     from golden.pipeline import run_pipeline
 
+    sweeps = {"golden": golden_sequence, "dense": dense_sweeps}[name]()
     t0 = time.perf_counter()
-    oracle = run_pipeline(*golden_sequence())
+    oracle = run_pipeline(*sweeps)
     np.savez(out, seconds=time.perf_counter() - t0, **oracle)
     return 0
 
 
-def start_golden_oracle():
-    """Start golden_oracle beside the card's phases 4-6, on one BLAS
-    thread (its trajectories are those of any thread count, bit for bit;
-    one thread leaves the host's other cores to the replays).  Returns
-    (process, output path, log path)."""
+def start_oracle(name: str):
+    """Start oracle_process beside the card's phases, on one BLAS thread
+    (its trajectories are those of any thread count, bit for bit; one
+    thread leaves the host's other cores to the replays).  Returns
+    (name, process, output path, log path)."""
     import atexit
     import os
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    out = OUT_DIR / "golden_oracle.npz"
+    out = OUT_DIR / f"{name}_oracle.npz"
     out.unlink(missing_ok=True)
-    log = OUT_DIR / "golden_oracle.log"
+    log = OUT_DIR / f"{name}_oracle.log"
     env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
                MKL_NUM_THREADS="1")
     with open(log, "w") as f:
         proc = subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--golden-oracle",
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--oracle", name,
              str(out)], stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
             env=env)
     def stop():
@@ -1051,33 +1194,32 @@ def start_golden_oracle():
             proc.kill()
             proc.wait()
 
-    # a phase that fails before phase 7 leaves no oracle running
+    # a phase that fails first leaves no oracle running
     atexit.register(stop)
-    return proc, out, log
+    return name, proc, out, log
 
 
-def wait_golden_oracle(started) -> dict:
+def wait_oracle(started) -> dict:
     """The oracle's trajectories, once its process has ended; raises with
     the end of its log when it fails or outlives ORACLE_TIMEOUT."""
-    proc, out, log = started
+    name, proc, out, log = started
     t0 = time.perf_counter()
     try:
         proc.wait(timeout=ORACLE_TIMEOUT)
     except subprocess.TimeoutExpired as exc:
-        raise AssertionError(f"the golden oracle did not finish in "
+        raise AssertionError(f"the {name} oracle did not finish in "
                              f"{ORACLE_TIMEOUT} s") from exc
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
     if proc.returncode:
-        raise AssertionError(f"the golden oracle exited {proc.returncode}:"
+        raise AssertionError(f"the {name} oracle exited {proc.returncode}:"
                              f"\n{log.read_text()[-3000:]}")
     oracle = dict(np.load(out))
-    print(f"golden: {GOLDEN_F} sweeps of {GOLDEN_AZIMUTH} azimuths, the "
-          f"oracle in {float(oracle.pop('seconds')):.1f} s on the host "
-          f"beside phases 4-6, waited for {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"{name}: the oracle in {float(oracle.pop('seconds')):.1f} s on "
+          f"the host beside the card's phases, waited for "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return oracle
 
 
@@ -2189,6 +2331,147 @@ def long_phase(dev, card: str):
     return launches
 
 
+def dense_config():
+    """The dense cell's LoamConfig: rings of DENSE_AZIMUTH."""
+    from loam_tpu_torch.config import LoamConfig
+
+    return dataclasses.replace(LoamConfig(), ring_width=DENSE_AZIMUTH)
+
+
+def dense_sweeps():
+    """DENSE_F sweeps of the default cell's recipe at DENSE_AZIMUTH
+    azimuths (NumPy)."""
+    return make_sweeps(DENSE_F, DENSE_AZIMUTH)
+
+
+def feature_overflow(raw_t, msk_t, cfg) -> dict:
+    """What the caps of feature extraction cut from these sweeps: for each
+    feature cloud, the most points a frame selects against its cap and
+    the points cut over all frames; for the less-flat voxels, also each
+    ring's against less_flat_ring_cap."""
+    from loam_tpu_torch import frontend
+    from loam_tpu_torch.ops import features as FT
+    from loam_tpu_torch.ops.voxel import voxel_downsample
+
+    sweep = frontend.ingest_sweep(raw_t, msk_t, cfg)
+    W = cfg.ring_width
+    curv, gap, pre, counts = FT.selection_inputs(sweep, cfg)
+    labels, _ = FT.select_rings(curv.reshape(-1, W), gap.reshape(-1, W),
+                                pre.reshape(-1, W), counts.reshape(-1), cfg)
+    labels = labels.reshape(sweep.mask.shape)
+    F = labels.shape[0]
+    out = {}
+    for name, sel, cap in (("sharp", labels == 2, cfg.max_sharp),
+                           ("less_sharp", labels >= 1, cfg.max_less_sharp),
+                           ("flat", labels == -1, cfg.max_flat)):
+        n = sel.reshape(F, -1).sum(-1)
+        out[name] = dict(most=int(n.max()), cap=cap,
+                         cut=int((n - cap).clamp(min=0).sum()))
+    idx = torch.arange(W, device=raw_t.device)
+    selectable = (idx >= 5) & (idx <= counts[..., None] - 6) & sweep.mask
+    keep = selectable & (labels <= 0)
+    # the voxels of each ring uncapped (a cap of W cuts nothing)
+    _, _, voxels = voxel_downsample(sweep.xyz, keep, cfg.less_flat_leaf, W)
+    per_ring = voxels.sum(-1)
+    kept = per_ring.clamp(max=cfg.less_flat_ring_cap)
+    per_frame = kept.reshape(F, -1).sum(-1)
+    out["less_flat_ring"] = dict(
+        most=int(per_ring.max()), cap=cfg.less_flat_ring_cap,
+        cut=int((per_ring - kept).sum()))
+    out["less_flat"] = dict(
+        most=int(per_frame.max()), cap=cfg.max_less_flat,
+        cut=int((per_frame - cfg.max_less_flat).clamp(min=0).sum()))
+    return out
+
+
+def dense_phase(dev, card: str, started):
+    """Phase 12, the dense cell: DENSE_F sweeps of a VLP-16 in dual-return
+    mode replayed in rings of 3600 in three mapping modes (DENSE_MODES),
+    each integrated trajectory within ATE_GATE of the NumPy oracle
+    (started: start_oracle("dense")), each through its new kernel
+    instances; then the command line at rings of 1800.  Prints the
+    feature caps' and the map's overflow.  Returns the replays' launch
+    counts."""
+    from loam_tpu_torch import metrics, pipeline
+
+    t_phase = time.perf_counter()
+    raw, msk = dense_sweeps()
+    raw_t = torch.tensor(raw, device=dev)
+    msk_t = torch.tensor(msk, device=dev)
+    cfg0 = dense_config()
+    print(f"dense: {DENSE_F} sweeps of {DENSE_AZIMUTH} azimuths, "
+          f"{int(msk.sum(1).max())} points a sweep at most, rings of "
+          f"{cfg0.ring_width}; feature caps (most a frame or ring, cap, "
+          f"points cut) {feature_overflow(raw_t, msk_t, cfg0)} [{card}]",
+          flush=True)
+    launches, results = {}, {}
+    for name, (over, required, forbidden, instances) in DENSE_MODES.items():
+        cfg = dataclasses.replace(cfg0, **over)
+        (outs, state), counts, seconds = counted_replay(
+            name, required, forbidden,
+            lambda: pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg),
+            lambda: pipeline.replay_sweeps(raw_t, msk_t, cfg,
+                                           return_state=True))
+        missing = [(fn, key) for fn, keys in instances.items() for key in keys
+                   if counts["instances"][fn].get(key, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{name} replay never launched the kernel "
+                                 f"instances {missing}")
+        launches[name] = counts
+        results[name] = (outs, state, seconds)
+    oracle = wait_oracle(started)
+    failed = []
+    for name, (outs, state, seconds) in results.items():
+        est = outs.pose_integrated.cpu().numpy()
+        ate = metrics.ate_rmse(est[:, 3:6], oracle["integrated"][:, 3:6])
+        cadence = np.array_equal(outs.mapped.cpu().numpy(), oracle["mapped"])
+        print(f"replay {name}: {DENSE_F} frames in {seconds:.3f} s = "
+              f"{DENSE_F / seconds:.2f} frames/s; integrated ATE vs golden "
+              f"oracle {100 * ate:.4f} cm; mapping cadence equal: {cadence}; "
+              f"local map overflow {int(state.map.local_map_overflow)}, NaN "
+              f"skips {int(state.map.nan_skips)}; launches "
+              f"{launches[name]} [{card}]", flush=True)
+        if not (np.isfinite(est).all() and ate < ATE_GATE):
+            failed.append(f"{name}: integrated ATE {ate:.4f} m")
+
+    # (d) the command line at rings of DENSE_CLI_WIDTH, as a subprocess
+    out = OUT_DIR / "cli_dense"
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "loam_tpu_torch", "--synthetic",
+           str(DENSE_CLI_F), "--ring-width", str(DENSE_CLI_WIDTH),
+           "--golden-compare", "--out-dir", str(out)]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        failed.append(f"{' '.join(cmd[1:])} exited {done.returncode}:\n"
+                      f"{done.stdout[-3000:]}\n{done.stderr[-5000:]}")
+    else:
+        from loam_tpu_torch.io import export
+
+        verdict = cli_verdict(done.stdout)
+        _, pos, _ = export.load_trajectory_tum(str(out / "integrated.tum"))
+        n_map = export.load_cloud_ply(str(out / "map_surround.ply")).shape[0]
+        if pos.shape != (DENSE_CLI_F, 3) or not np.isfinite(pos).all() \
+                or n_map <= 0:
+            failed.append(f"dense cli: {pos.shape[0]} poses, {n_map} map "
+                          "points")
+        print(f"dense cli: --synthetic {DENSE_CLI_F} --ring-width "
+              f"{DENSE_CLI_WIDTH}: ATE vs golden oracle odometry "
+              f"{verdict['ate_odom_cm']} cm, integrated "
+              f"{verdict['ate_integrated_cm']} cm, pass {verdict['pass']}; "
+              f"{n_map} map points; the command took {seconds:.1f} s "
+              f"[{card}]", flush=True)
+        if not verdict["pass"]:
+            failed.append(f"dense cli failed its gate: {verdict}")
+    print(f"dense phase: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    if failed:
+        raise AssertionError(f"phase 12 failed its gates: {failed}")
+    return launches
+
+
 def fetch(url: str) -> bytes:
     """GET over loopback."""
     import urllib.request
@@ -2219,15 +2502,15 @@ def main() -> int:
         import argparse
 
         ap = argparse.ArgumentParser(
-            description="a helper process of chip_smoke.py: phase 7's "
-                        "oracle, or one rank of phase 10")
-        ap.add_argument("--golden-oracle", metavar="OUT")
+            description="a helper process of chip_smoke.py: phase 7's or "
+                        "phase 12's oracle, or one rank of phase 10")
+        ap.add_argument("--oracle", nargs=2, metavar=("NAME", "OUT"))
         ap.add_argument("--rank", type=int)
         ap.add_argument("--ranks", type=int)
         ap.add_argument("--port", type=int)
         a = ap.parse_args()
-        if a.golden_oracle:
-            return golden_oracle(a.golden_oracle)
+        if a.oracle:
+            return oracle_process(*a.oracle)
         return scale_rank(a.rank, a.ranks, a.port)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2243,14 +2526,18 @@ def main() -> int:
     configure_numerics()
 
     secs = _build.build_all()
+    each = ", ".join(f"{n} {s:.1f} s" for n, s in _build.build_all.seconds.items())
     print(f"built {len(_build.KERNEL_SOURCES)} kernel libraries in {secs:.1f} s from "
-          f"{Path(_build.CSRC).parent}", flush=True)
+          f"{Path(_build.CSRC).parent} (one nvcc each, all started together; "
+          f"each done by: {each})", flush=True)
 
     raw, msk = make_sweeps()
     imu = imu_inputs(dev)
-    rows = kernel_phase(dev, raw, msk, replay_config("default"), imu)
+    rows = kernel_phase(dev, raw, msk, replay_config("default"), imu,
+                        dense_sweeps())
     print_rows(rows, card)
-    golden = start_golden_oracle()
+    golden = start_oracle("golden")
+    dense = start_oracle("dense")
 
     from golden.pipeline import run_pipeline
 
@@ -2283,7 +2570,7 @@ def main() -> int:
     launches["imu"] = imu_phase(dev, card, imu)
     launches["batch"], batch = batch_phase(dev, card)
     launches["golden"], launches["golden hybrid"] = golden_phase(
-        dev, card, wait_golden_oracle(golden))
+        dev, card, wait_oracle(golden))
     cli_synthetic_phase(card)
     launches["cli bag"], bag = cli_bag_phase(dev, card)
     checkpoint_phase(dev, card, bag)
@@ -2292,25 +2579,42 @@ def main() -> int:
     launches.update(scale_out_phase(dev, card, batch, raw, msk,
                                     replays["default"]))
     launches.update(long_phase(dev, card))
+    launches.update(dense_phase(dev, card, dense))
 
     # the windowed k-NN runs at k=5 in the strict replays, the entry and
-    # the online engine only, and at k=8 in the hybrid ones (phase 10's
-    # replays too); odom_corr walks untruncated in phase 11's replays
-    # only; every other count sums over the replays
+    # the online engine only, at k=8 in the hybrid ones (phase 10's
+    # replays too) and at k=16 in phase 12's; odom_corr walks untruncated
+    # in phase 11's replays only; phase 12's walks and its cell-bucket
+    # selections have rows of their own; every other count sums over the
+    # replays
     k8_runs = ("hybrid", "batch", "golden hybrid", "cli bag", "scale-out a",
                "scale-out b", "scale-out c", "long hybrid")
     online = [n for n in launches if n.startswith("online")]
+    dense = list(DENSE_MODES)
     for r in rows:
         if r["name"] == "knn_topk_dyn":
             r["launches"] = sum(
                 launches[n]["knn_topk_dyn"] for n in
-                ["default", "entry", "long strict", "long split"] + online)
+                ["default", "entry", "long strict", "long split",
+                 "dense strict"] + online)
         elif r["name"] == "knn_topk_dyn_k8":
             r["launches"] = sum(launches[n]["knn_topk_dyn"] for n in k8_runs)
+        elif r["name"] == "knn_topk_dyn_k16":
+            r["launches"] = launches["dense hybrid"]["knn_topk_dyn"]
         elif r["name"] in ("odom_corr", "odom_corr_untruncated"):
             r["launches"] = sum(
                 c["odom_corr"] for n, c in launches.items()
                 if (n in UNTRUNCATED_RUNS) == (r["name"] != "odom_corr"))
+        elif r["name"] == "select_walk_wide":
+            r["launches"] = sum(launches[n]["select_walk"] for n in dense)
+        elif r["name"] == "select_walk":
+            r["launches"] = sum(c["select_walk"] for n, c in launches.items()
+                                if n not in dense)
+        elif r["name"] == "kselect_dense":
+            r["launches"] = launches["dense cells"]["knn_select"]
+        elif r["name"] == "kselect":
+            r["launches"] = sum(c["knn_select"] for n, c in launches.items()
+                                if n != "dense cells")
         else:
             r["launches"] = sum(c[r["counter"]] for c in launches.values())
         if r["launches"] <= 0:

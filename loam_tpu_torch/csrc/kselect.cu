@@ -3,9 +3,10 @@
 //
 // Replaces: loam_tpu/ops/pallas/kselect.py:_kselect_kernel (wrapper
 // knn_select), the fused distance + k-smallest selection behind
-// map_store.knn_candidates (the 27-cell gather, C = 864, k = 24) and
+// map_store.knn_candidates (the 27-cell gather, C = 27 *
+// search_bucket_cap, k = knn_candidates: 864 and 24 by default) and
 // map_store.knn_from_candidates (the per-iteration re-rank of a cached
-// candidate set, C = 24 or 8, k = 5).
+// candidate set, C = knn_candidates or the hybrid cache, k = map_knn).
 //
 // What bounds it on the H100: bytes.  Every candidate is read once
 // (12 bytes of coordinates and one validity byte) against about 9 fp32
@@ -29,19 +30,22 @@
 //   * C > 32 (kselect_warp_kernel): a warp owns a query.  The query's
 //     row (C x 12 bytes of coordinates, C validity bytes; both contiguous)
 //     arrives by cp.async, 16 bytes a copy, into the warp's slice of
-//     shared memory, every byte moved once; enough warps fit an SM (16
-//     at C = 864) that the rows of the others are in flight while one
-//     is ranked.  The lanes turn the row into distances in place (lane
-//     l takes candidates l, l + 32, ...: words at a stride of three, no
-//     bank conflicts).  Each lane keeps its kReady smallest (distance, index)
-//     pairs sorted in registers; a round is two hardware warp reductions
-//     over the heads (warp_min_pair), the owner retires its pick and
-//     moves its next up, and looks through its own <= 32 distances again
-//     only when its ready pairs are used up, which at k = 24 is rare.
-//     Lane s keeps round s's pick, so the k results leave in one
-//     coalesced store, the coordinates read back from `cand` by index.
-//     Rows that are not 16-byte aligned (C not a multiple of 4, or an
-//     offset base pointer) take plain loads instead of cp.async.
+//     shared memory, every byte moved once.  A block has as many warps
+//     (8 at most) as its 227 KB hold rows of C, so that the rows of the
+//     others are in flight while one is ranked (8 at C = 864 and 1296;
+//     one warp takes C up to 17880).  The lanes turn the row into
+//     distances in place (lane l takes candidates l, l + 32, ...: words
+//     at a stride of three, no bank conflicts).  Each lane keeps its
+//     kReady smallest (distance, index) pairs sorted in registers; a
+//     round is two hardware warp reductions over the heads
+//     (warp_min_pair), the owner retires its pick and moves its next up,
+//     and looks through its own ceil(C / 32) distances again only when
+//     its ready pairs are used up, which at k = 24 of 864 is rare.  Lane
+//     s % 32 keeps round s's pick, and each 32 rounds leave in one
+//     coalesced store, the coordinates read back from `cand` by index:
+//     k is bounded by C alone.  Rows that are not 16-byte aligned (C
+//     not a multiple of 4, or an offset base pointer) take plain loads
+//     instead of cp.async.
 // Either way the picks are k distinct indices in ascending (distance,
 // index) order, invalid candidates (1e30) after every valid one: the
 // rule of a stable top-k, which the plain PyTorch version follows to the
@@ -57,12 +61,11 @@
 
 namespace {
 
-constexpr int kMaxC = 1024;  // candidates a query: <= 32 a lane
-constexpr int kMaxK = 32;
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may ask
 constexpr int kGroup = 8;       // lanes a query in kselect_group_kernel
 constexpr int kGroupMaxC = 4 * kGroup;  // at most 4 candidates a lane
 constexpr int kGroupThreads = 256;
-constexpr int kWarps = 8;    // warps a block in kselect_warp_kernel
+constexpr int kWarps = 8;    // warps a block in kselect_warp_kernel, at most
 constexpr int kReady = 4;    // pairs a lane keeps ready there
 constexpr int kBatch = 4;    // candidates a lane loads before it stores
 
@@ -165,7 +168,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   constexpr int kStride = kAsync ? 3 : 1;  // words between two distances
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * kWarps + warp;
+  const int qi = blockIdx.x * (blockDim.x >> 5) + warp;
   if (qi >= Q) return;  // a whole warp leaves; no block-wide barrier below
   unsigned char* mine = smem + warp * warp_smem_bytes(C, kAsync);
   float* row = reinterpret_cast<float*>(mine);
@@ -222,6 +225,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   rescan();
   int ready = kReady;
 
+  // round s's pick stays in lane s % 32 until its 32 rounds are done
+  const long o = static_cast<long>(qi) * k;
   float out_d = 0.0f;
   int out_i = 0;
   for (int s = 0; s < k; ++s) {
@@ -229,7 +234,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     int mi = bi[0];
     warp_min_pair(m, mi);
     // k <= C keeps the winner a real index, held by exactly one lane
-    if (lane == s) {
+    if (lane == (s & 31)) {
       out_d = m;
       out_i = mi;
     }
@@ -247,13 +252,15 @@ __global__ void __launch_bounds__(kWarps * 32)
         ready = kReady;
       }
     }
-  }
-  if (lane < k) {
-    const long o = static_cast<long>(qi) * k + lane;
-    d2_out[o] = out_d;
-    pts_out[3 * o] = cq[3 * out_i];
-    pts_out[3 * o + 1] = cq[3 * out_i + 1];
-    pts_out[3 * o + 2] = cq[3 * out_i + 2];
+    if ((s & 31) == 31 || s + 1 == k) {
+      const long slot = (s & ~31) + lane;
+      if (slot <= s) {
+        d2_out[o + slot] = out_d;
+        pts_out[3 * (o + slot)] = cq[3 * out_i];
+        pts_out[3 * (o + slot) + 1] = cq[3 * out_i + 1];
+        pts_out[3 * (o + slot) + 2] = cq[3 * out_i + 2];
+      }
+    }
   }
 }
 
@@ -272,16 +279,20 @@ template <bool kAsync>
 int launch_warp(const float* cand, const uint8_t* valid, const float* q,
                 float* pts, float* d2, int Q, int C, int k,
                 cudaStream_t stream) {
-  const int smem = static_cast<int>(kWarps * warp_smem_bytes(C, kAsync));
-  // above 48 KB a block's dynamic shared memory has to be asked for
+  // as many warps as the block's shared memory holds rows of C
+  const size_t row = warp_smem_bytes(C, kAsync);
+  const int fit = static_cast<int>(kSmemMax / row);
+  const int warps = fit < kWarps ? fit : kWarps;
+  const int smem = static_cast<int>(warps * row);
+  // above 48 KB a block's dynamic shared memory has to be asked for; the
+  // limit asked is the card's, the same for every C, so launches from
+  // several host threads never race on it
   cudaError_t e = cudaFuncSetAttribute(
       kselect_warp_kernel<kAsync>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kWarps * warp_smem_bytes(kMaxC, kAsync)));
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (e != cudaSuccess) return e;
-  kselect_warp_kernel<kAsync>
-      <<<(Q + kWarps - 1) / kWarps, kWarps * 32, smem, stream>>>(
-          cand, valid, q, pts, d2, Q, C, k);
+  kselect_warp_kernel<kAsync><<<(Q + warps - 1) / warps, warps * 32, smem,
+                                stream>>>(cand, valid, q, pts, d2, Q, C, k);
   return cudaSuccess;
 }
 
@@ -289,12 +300,14 @@ int launch_warp(const float* cand, const uint8_t* valid, const float* q,
 
 // cand (Q, C, 3) float32, valid (Q, C) one byte each (0 or 1), q (Q, 3)
 // float32; outputs pts (Q, k, 3) and d2 (Q, k) float32, nearest first.
-// 1 <= k <= min(C, 32), C <= 1024.  Returns cudaGetLastError().
+// 1 <= k <= C, and one row of C fits a block's shared memory
+// (warp_smem_bytes(C, true) <= 227 KB: C <= 17880).  Returns
+// cudaGetLastError().
 extern "C" int kselect_launch(const void* cand, const void* valid,
                               const void* q, void* pts, void* d2, int Q,
                               int C, int k, void* stream) {
   if (Q <= 0) return 0;
-  if (C <= 0 || C > kMaxC || k <= 0 || k > kMaxK || k > C)
+  if (C <= 0 || k <= 0 || k > C || warp_smem_bytes(C, true) > kSmemMax)
     return cudaErrorInvalidValue;
   const auto* cf = static_cast<const float*>(cand);
   const auto* vb = static_cast<const uint8_t*>(valid);
@@ -325,4 +338,12 @@ extern "C" int kselect_launch(const void* cand, const void* valid,
     if (e != cudaSuccess) return e;
   }
   return cudaGetLastError();
+}
+
+// the most candidates a row kselect_launch takes: one warp's staged row
+// in a block's dynamic shared memory
+extern "C" int kselect_max_c() {
+  int C = kSmemMax / 12;
+  while (warp_smem_bytes(C, true) > kSmemMax) --C;
+  return C;
 }

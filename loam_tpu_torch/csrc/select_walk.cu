@@ -45,10 +45,12 @@
 // labels its last pick and stops before suppressing it.  A walk ends at
 // step `lim` (the corner_scan_k / flat_scan_k depth, else the subregion).
 //
-// Meta word: bits 0-10 ring index, 11-13 upward reach, 14-16 downward
-// reach, 17 in-span (and ring has >= 12 points), 18 curvature qualifies.
-// Output per ring: [sharp | less_sharp | flat | picked] bit-fields, W/32
-// uint32 words each, stored as int64.
+// Meta word: bits 0-12 ring index, 13-15 upward reach, 16-18 downward
+// reach, 19 in-span (and ring has >= 12 points), 20 curvature qualifies.
+// Output per ring: [sharp | less_sharp | flat | picked] bit-fields,
+// wb = ceil(W / 32) uint32 words each, stored as int64; a width that is
+// not a multiple of 32 leaves the bits past W - 1 of the last word 0 (no
+// suppression range reaches past W - 1).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,6 +60,14 @@
 namespace {
 
 constexpr int kWarps = 4;  // rings a block
+constexpr int kMaxW = 8192;  // 13-bit ring indices, 8 words a lane
+
+// the meta word's fields (ops/cuda/select_walk.py packs them)
+constexpr int kIndMask = (1 << 13) - 1;
+constexpr int kUpShift = 13;
+constexpr int kDnShift = 16;
+constexpr int kValidShift = 19;
+constexpr int kQualShift = 20;
 
 // bits [lo, hi] of word w (lo <= hi, both within w's 32 or straddling)
 __device__ __forceinline__ uint32_t range_bits(int lo, int hi, int w) {
@@ -92,13 +102,13 @@ __device__ __forceinline__ Chunks load_walk(const int32_t* meta, int lane,
 // One walk over the candidates [0, lim) of `meta` (walk order).  Lane l
 // holds candidate 32c + 31 - l of chunk c, so the first event is the
 // highest set bit of a ballot and "the lanes after it" are those below.
-// picked[2]: this lane's words (l and l + 32) of the ring's picked
+// picked[NW]: this lane's words (l, l + 32, ...) of the ring's picked
 // bit-field; labels: the warp's sharp, less_sharp and flat bit-fields in
 // shared memory, written at each chunk's end.
-template <bool kCorner>
+template <bool kCorner, int NW>
 __device__ __forceinline__ void walk(const int32_t* __restrict__ meta,
                                      Chunks first, int lim,
-                                     uint32_t (&picked)[2], uint32_t* labels,
+                                     uint32_t (&picked)[NW], uint32_t* labels,
                                      int wb, int lane, int last,
                                      int max_sharp, int quota) {
   int cnt = 0;
@@ -110,20 +120,25 @@ __device__ __forceinline__ void walk(const int32_t* __restrict__ meta,
       m = c == 2 ? load_ahead(meta, t, lim) : ahead;
       ahead = load_ahead(meta, t + 32, lim);
     }
-    const int ind = m & 0x7FF;
-    const bool stops = ((m >> 17) & 1) == 0 || ((m >> 18) & 1) == 0;
+    const int ind = m & kIndMask;
+    const bool stops =
+        ((m >> kValidShift) & 1) == 0 || ((m >> kQualShift) & 1) == 0;
     // this candidate's suppression range, clipped at the ring ends, and
     // its one or two words of the picked bit-field
-    const int lo = max(ind - ((m >> 14) & 7), 0);
-    const int hi = min(ind + ((m >> 11) & 7), last);
+    const int lo = max(ind - ((m >> kDnShift) & 7), 0);
+    const int hi = min(ind + ((m >> kUpShift) & 7), last);
     const uint32_t mask0 = range_bits(lo, hi, lo >> 5);
     const uint32_t mask1 = (hi >> 5) != (lo >> 5)
                                ? range_bits(lo, hi, hi >> 5) : 0u;
     const int span = lo | (hi << 16);
     const int owner = (ind >> 5) & 31;
-    const uint32_t pw0 = __shfl_sync(kFullMask, picked[0], owner);
-    const uint32_t pw1 = __shfl_sync(kFullMask, picked[1], owner);
-    const uint32_t pw = ind < 1024 ? pw0 : pw1;
+    const int slot = ind >> 10;
+    uint32_t pw = 0u;
+#pragma unroll
+    for (int u = 0; u < NW; ++u) {
+      const uint32_t v = __shfl_sync(kFullMask, picked[u], owner);
+      pw = u == slot ? v : pw;
+    }
     // live: this lane's candidate is still an event (a stop, or not picked)
     bool live = (t < lim) & (stops | (((pw >> (ind & 31)) & 1u) == 0u));
     const unsigned stop_lanes = __ballot_sync(kFullMask, (t < lim) & stops);
@@ -150,10 +165,11 @@ __device__ __forceinline__ void walk(const int32_t* __restrict__ meta,
       const int ehi = se >> 16;
       const int w0 = elo >> 5;
       const int w1 = w0 + 1;
-      picked[0] |= lane == w0 ? k0 : 0u;
-      picked[1] |= lane == w0 - 32 ? k0 : 0u;
-      picked[0] |= lane == w1 ? k1 : 0u;
-      picked[1] |= lane == w1 - 32 ? k1 : 0u;
+#pragma unroll
+      for (int u = 0; u < NW; ++u) {
+        picked[u] |= lane + 32 * u == w0 ? k0 : 0u;
+        picked[u] |= lane + 32 * u == w1 ? k1 : 0u;
+      }
       live = live & (lane < e) & (stops | (ind < elo) | (ind > ehi));
     }
     if (kind >= 0) atomicOr(labels + kind * wb + (ind >> 5), 1u << (ind & 31));
@@ -161,14 +177,16 @@ __device__ __forceinline__ void walk(const int32_t* __restrict__ meta,
   }
 }
 
+template <int NW>
 __global__ void __launch_bounds__(32 * kWarps)
     select_walk_kernel(const int32_t* __restrict__ corner_meta,
                        const int32_t* __restrict__ flat_meta,
                        const int64_t* __restrict__ picked0,
                        int64_t* __restrict__ out, int R, int n_sub, int subw,
-                       int wb, int corner_lim, int flat_lim, int max_sharp,
+                       int W, int corner_lim, int flat_lim, int max_sharp,
                        int max_less_sharp, int max_flat) {
-  __shared__ uint32_t label_smem[kWarps][3 * 64];
+  __shared__ uint32_t label_smem[kWarps][3 * 32 * NW];
+  const int wb = (W + 31) / 32;
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= R) return;  // a whole warp; no block-wide barrier below
@@ -181,13 +199,16 @@ __global__ void __launch_bounds__(32 * kWarps)
   Chunks corner = load_walk(cm, lane, corner_lim);
   Chunks flat = load_walk(fm, lane, flat_lim);
   const int64_t* p0 = picked0 + ring * wb;
-  uint32_t picked[2];
-  picked[0] = lane < wb ? static_cast<uint32_t>(p0[lane]) : 0u;
-  picked[1] = lane + 32 < wb ? static_cast<uint32_t>(p0[lane + 32]) : 0u;
+  uint32_t picked[NW];
+#pragma unroll
+  for (int u = 0; u < NW; ++u) {
+    const int w = lane + 32 * u;
+    picked[u] = w < wb ? static_cast<uint32_t>(p0[w]) : 0u;
+  }
   uint32_t* labels = label_smem[threadIdx.x >> 5];
   for (int w = lane; w < 3 * wb; w += 32) labels[w] = 0u;
   __syncwarp();
-  const int last = 32 * wb - 1;
+  const int last = W - 1;
 
   // The last subregion reloads its own walks: on an H100 a branch around
   // those two loads measured slower than the loads themselves.
@@ -195,43 +216,71 @@ __global__ void __launch_bounds__(32 * kWarps)
     const int next = min(j + 1, n_sub - 1) * subw;
     const Chunks corner_now = corner;
     corner = load_walk(cm + next, lane, corner_lim);
-    walk<true>(cm + j * subw, corner_now, corner_lim, picked, labels, wb,
-               lane, last, max_sharp, max_less_sharp);
+    walk<true, NW>(cm + j * subw, corner_now, corner_lim, picked, labels,
+                   wb, lane, last, max_sharp, max_less_sharp);
     const Chunks flat_now = flat;
     flat = load_walk(fm + next, lane, flat_lim);
-    walk<false>(fm + j * subw, flat_now, flat_lim, picked, labels, wb, lane,
-                last, 0, max_flat);
+    walk<false, NW>(fm + j * subw, flat_now, flat_lim, picked, labels, wb,
+                    lane, last, 0, max_flat);
   }
 
   __syncwarp();
   int64_t* o = out + ring * 4 * wb;
   for (int w = lane; w < 3 * wb; w += 32)
     o[w] = static_cast<int64_t>(labels[w]);
-  if (lane < wb) o[3 * wb + lane] = static_cast<int64_t>(picked[0]);
-  if (lane + 32 < wb) o[3 * wb + lane + 32] = static_cast<int64_t>(picked[1]);
+#pragma unroll
+  for (int u = 0; u < NW; ++u) {
+    const int w = lane + 32 * u;
+    if (w < wb) o[3 * wb + w] = static_cast<int64_t>(picked[u]);
+  }
+}
+
+template <int NW>
+void launch(const int32_t* cm, const int32_t* fm, const int64_t* p0,
+            int64_t* out, int B, int R, int n_sub, int subw, int W,
+            int corner_lim, int flat_lim, int max_sharp, int max_less_sharp,
+            int max_flat, cudaStream_t stream) {
+  dim3 grid((R + kWarps - 1) / kWarps, B);
+  select_walk_kernel<NW><<<grid, 32 * kWarps, 0, stream>>>(
+      cm, fm, p0, out, R, n_sub, subw, W, corner_lim, flat_lim, max_sharp,
+      max_less_sharp, max_flat);
 }
 
 }  // namespace
 
 // corner_meta/flat_meta (B, R, n_sub*subw) int32; picked0 (B, R, wb) int64
-// holding uint32 words; out (B, R, 4*wb) int64; wb <= 64.
-// corner_lim/flat_lim in [1, subw]: the walks' depths.  Returns
-// cudaGetLastError().
+// holding uint32 words, wb = ceil(W / 32); out (B, R, 4*wb) int64;
+// 1 <= W <= select_walk_max_w().  corner_lim/flat_lim in [1, subw]: the
+// walks' depths.  *instance receives the words a lane of the kernel
+// launched holds (NW: 2, 4 or 8), 0 when nothing launched.
+// Returns cudaGetLastError().
 extern "C" int select_walk_launch(const void* corner_meta,
                                   const void* flat_meta, const void* picked0,
                                   void* out, int B, int R, int n_sub,
-                                  int subw, int wb, int corner_lim,
+                                  int subw, int W, int corner_lim,
                                   int flat_lim, int max_sharp,
                                   int max_less_sharp, int max_flat,
-                                  void* stream) {
+                                  int* instance, void* stream) {
+  *instance = 0;
   if (B <= 0 || R <= 0) return 0;
-  dim3 grid((R + kWarps - 1) / kWarps, B);
-  select_walk_kernel<<<grid, 32 * kWarps, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(corner_meta),
-      static_cast<const int32_t*>(flat_meta),
-      static_cast<const int64_t*>(picked0), static_cast<int64_t*>(out), R,
-      n_sub, subw, wb, corner_lim, flat_lim, max_sharp, max_less_sharp,
-      max_flat);
+  if (W <= 0 || W > kMaxW || B > 65535) return cudaErrorInvalidValue;
+  const auto* cm = static_cast<const int32_t*>(corner_meta);
+  const auto* fm = static_cast<const int32_t*>(flat_meta);
+  const auto* p0 = static_cast<const int64_t*>(picked0);
+  auto* o = static_cast<int64_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  *instance = W <= 2048 ? 2 : W <= 4096 ? 4 : 8;
+  if (*instance == 2)
+    launch<2>(cm, fm, p0, o, B, R, n_sub, subw, W, corner_lim, flat_lim,
+              max_sharp, max_less_sharp, max_flat, s);
+  else if (*instance == 4)
+    launch<4>(cm, fm, p0, o, B, R, n_sub, subw, W, corner_lim, flat_lim,
+              max_sharp, max_less_sharp, max_flat, s);
+  else
+    launch<8>(cm, fm, p0, o, B, R, n_sub, subw, W, corner_lim, flat_lim,
+              max_sharp, max_less_sharp, max_flat, s);
   return cudaGetLastError();
 }
+
+// the widest ring select_walk_launch takes
+extern "C" int select_walk_max_w() { return kMaxW; }

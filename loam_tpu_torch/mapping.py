@@ -33,8 +33,8 @@ import torch
 from . import map_store, resolve_device
 from .config import LoamConfig
 from .ops import residuals
-from .ops.cuda.knn_topk import KERNEL_K, knn_points
-from .ops.cuda.kselect import MAX_C, MAX_K
+from .ops.cuda.knn_topk import MAX_K as KNN_MAX_K, knn_points
+from .ops.cuda.kselect import MAX_C as KSELECT_MAX_C
 from .ops.voxel import voxel_downsample
 from .types import (PointCloud, add_scenario_axis, drop_scenario_axis,
                     per_scenario)
@@ -87,37 +87,41 @@ def _hybrid(cfg: LoamConfig) -> bool:
 
 
 def check_mapping_config(cfg: LoamConfig) -> None:
-    """Refuse, before any work and on every device, a k the card's
-    neighbour kernels are not built for: the exact paths' k-NN
-    (csrc/knn_topk.cu, k in KERNEL_K) and the cell path's two selections
-    (csrc/kselect.cu, 1 <= k <= min(C, MAX_K) and C <= MAX_C)."""
+    """Refuse, before any work and on every device, what the neighbour
+    kernels of the card cannot take: an exact k-NN past the kernel's
+    MAX_K (csrc/knn_topk.cu keeps each lane's list in shared memory past
+    k = 32), and a cell-path selection with k > C (loam_tpu's lax.top_k
+    refuses it too) or C past one block's shared memory
+    (csrc/kselect.cu)."""
+    def exact(k, what):
+        if not 1 <= k <= KNN_MAX_K:
+            raise ValueError(
+                f"{what}: the exact k-NN (csrc/knn_topk.cu) takes 1 <= k <= "
+                f"{KNN_MAX_K}, the lists of one warp in a block's 227 KB of "
+                "shared memory")
+
+    def select(k, C, what):
+        if not 1 <= k <= C <= KSELECT_MAX_C:
+            raise ValueError(
+                f"{what}: the cell-bucket map's selection (csrc/kselect.cu) "
+                f"needs 1 <= k <= C <= {KSELECT_MAX_C}, one row of C "
+                "candidates in a block's 227 KB of shared memory")
+
     if _hybrid(cfg):
-        if max(cfg.map_exact_cache_k, cfg.map_knn) not in KERNEL_K:
-            raise ValueError(
-                f"map_exact_cache_k={cfg.map_exact_cache_k} (with map_knn="
-                f"{cfg.map_knn}): the hybrid gather needs max("
-                f"map_exact_cache_k, map_knn) in {KERNEL_K}, the k values "
-                "csrc/knn_topk.cu is instantiated for")
+        exact(max(cfg.map_exact_cache_k, cfg.map_knn),
+              f"map_exact_cache_k={cfg.map_exact_cache_k} (with map_knn="
+              f"{cfg.map_knn}): the hybrid gather's max(map_exact_cache_k, "
+              "map_knn)")
     elif cfg.map_exact_knn:
-        if cfg.map_knn not in KERNEL_K:
-            raise ValueError(
-                f"map_knn={cfg.map_knn}: the strict exact k-NN needs map_knn "
-                f"in {KERNEL_K}, the k values csrc/knn_topk.cu is "
-                "instantiated for")
+        exact(cfg.map_knn, f"map_knn={cfg.map_knn} on the strict exact path")
     else:
         C = 27 * cfg.search_bucket_cap
-        for k, c, what in (
-                (cfg.knn_candidates, C,
-                 f"knn_candidates={cfg.knn_candidates} from 27 * "
-                 f"search_bucket_cap = C={C} candidates"),
-                (cfg.map_knn, cfg.knn_candidates,
-                 f"map_knn={cfg.map_knn} from C=knn_candidates="
-                 f"{cfg.knn_candidates} candidates")):
-            if not (1 <= k <= min(c, MAX_K) and c <= MAX_C):
-                raise ValueError(
-                    f"{what}: the cell-bucket map's selection needs 1 <= k "
-                    f"<= min(C, {MAX_K}) and C <= {MAX_C}, the sizes "
-                    "csrc/kselect.cu takes")
+        select(cfg.knn_candidates, C,
+               f"knn_candidates={cfg.knn_candidates} from 27 * "
+               f"search_bucket_cap = C={C} candidates")
+        select(cfg.map_knn, cfg.knn_candidates,
+               f"map_knn={cfg.map_knn} from C=knn_candidates="
+               f"{cfg.knn_candidates} candidates")
 
 
 def _corner_map_residuals(nn_fn, q_body, q_mask, tobe, cfg: LoamConfig):

@@ -80,24 +80,33 @@ def _finish(name: str, job) -> None:
 
 
 def build_all(names=KERNEL_SOURCES) -> float:
-    """Compile every kernel source concurrently; returns wall seconds."""
+    """Compile every kernel source concurrently; returns wall seconds.
+    ``build_all.seconds`` holds each source's seconds until its nvcc was
+    waited for (in ``names`` order: exact for the first, an upper bound
+    for the others)."""
     t0 = time.perf_counter()
     jobs = {name: _start(name) for name in names}
+    build_all.seconds = {}
     for name, job in jobs.items():
         _finish(name, job)
+        build_all.seconds[name] = time.perf_counter() - t0
     return time.perf_counter() - t0
+
+
+build_all.seconds = {}
 
 
 _ENTRIES: dict = {}
 _ENTRY_LOCK = threading.Lock()
 
 
-def entry(name: str, argtypes: tuple):
-    """The C entry point ``<name>_launch`` of csrc/<name>.cu, built if
-    needed, with its signature declared (pointers and the stream as
-    c_void_p) and an int cudaError_t result.  The first call builds and
-    loads under a lock; later calls only look it up."""
-    key = (name, argtypes)
+def entry(name: str, argtypes: tuple, symbol: str = "launch"):
+    """The C function ``<name>_<symbol>`` of csrc/<name>.cu (by default
+    the entry point ``<name>_launch``), built if needed, with its
+    signature declared (pointers and the stream as c_void_p) and an int
+    result (a cudaError_t, or a kernel's limit).  The first call builds
+    and loads under a lock; later calls only look it up."""
+    key = (name, argtypes, symbol)
     fn = _ENTRIES.get(key)
     if fn is None:
         with _ENTRY_LOCK:
@@ -105,7 +114,7 @@ def entry(name: str, argtypes: tuple):
             if fn is None:
                 _finish(name, _start(name))
                 fn = getattr(ctypes.CDLL(str(library_path(name))),
-                             f"{name}_launch")
+                             f"{name}_{symbol}")
                 fn.restype = ctypes.c_int
                 fn.argtypes = list(argtypes)
                 _ENTRIES[key] = fn

@@ -10,7 +10,12 @@ b < max(1, ceil(n_q/tq)); it sees reference j iff j < n_ref and
 t_lo[b] <= j // tm < t_hi[b].  Returns idx (B, Q, k) int32 and
 d2 (B, Q, k) float32, nearest first, ties to the smaller index, exact
 fp32 distances; missing neighbours and dead blocks read (index 0,
-d2 = 1e30).  Each wrapper counts its kernel launches in ``.launches``.
+d2 = 1e30).  Any 1 <= k <= MAX_K: the kernel (csrc/knn_topk.cu) keeps
+each lane's candidates in registers up to k = 32 (a template instance
+K >= k, its first k columns stored) and in shared memory past it.  Each
+wrapper counts its kernel launches in ``.launches``, and knn_topk_dyn's
+also in ``.by_k`` by the instance the C entry reports it launched (K of
+a register list, k of the shared-memory lists).
 
 ``knn_topk`` is the special case of every query against the whole live
 reference.  At k = 1 on the card it runs a kernel of its own
@@ -31,8 +36,12 @@ from ...types import per_scenario
 from ..nn import BIG, pairwise_sq_dists
 from . import _build
 
-KERNEL_K = (1, 5, 8)   # the kernel's template instantiations
-_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+# the largest k of csrc/knn_topk.cu (knn_topk_max_k): the lists of one
+# warp in a block's 227 KB beside the two staged slices of 1024 points;
+# here for the configuration check, which runs without the library
+MAX_K = (232448 - 2 * 3 * 1024 * 4) // (32 * 8)
+_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
+             + (ctypes.POINTER(ctypes.c_int), ctypes.c_void_p))
 _NEAREST_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3
                      + (ctypes.c_void_p,))
 # knn_nearest's key for "no reference": float32 1e30's bits above index 0
@@ -80,10 +89,9 @@ def knn_topk_plain(q, ref, n_q, n_ref, k, t_lo, t_hi, *, tq, tm):
 def _launch(q, ref, n_q, n_ref, k, t_lo, t_hi, tq, tm):
     B, Q, _ = q.shape
     M = ref.shape[1]
-    if k not in KERNEL_K or tq < 1 or Q % tq or tm < 1:
+    if not 1 <= k <= MAX_K or tq < 1 or Q % tq or tm < 1:
         raise ValueError(f"knn kernel: unsupported k={k} tq={tq} tm={tm} "
-                         f"Q={Q} (k must be one of {KERNEL_K}, Q a multiple "
-                         f"of tq)")
+                         f"Q={Q} (k from 1 to {MAX_K}, Q a multiple of tq)")
     nqb = Q // tq
     _build.require(q, torch.float32, (B, Q, 3), "q")
     _build.require(ref, torch.float32, (B, M, 3), "ref")
@@ -93,12 +101,14 @@ def _launch(q, ref, n_q, n_ref, k, t_lo, t_hi, tq, tm):
         _build.require(t, torch.int32, shape, name)
     d2 = torch.empty((B, Q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((B, Q, k), dtype=torch.int32, device=q.device)
+    instance = ctypes.c_int(0)
     launch = _build.entry("knn_topk", _ARGTYPES)
     err = launch(*(_build.ptr(t) for t in (q, ref, n_q, n_ref, t_lo, t_hi,
                                            d2, idx)),
-                 B, Q, M, k, tq, tm, _build.stream_of(q))
+                 B, Q, M, k, tq, tm, ctypes.byref(instance),
+                 _build.stream_of(q))
     _build.check(err, "knn_topk")
-    return idx, d2
+    return idx, d2, instance.value
 
 
 def _launch_nearest(q, ref, n_ref):
@@ -131,9 +141,9 @@ def knn_topk(q, ref, n_ref, k: int, *, tq: int, tm: int):
     if q.device.type == "cpu":
         return knn_topk_plain(q, ref, n_q, n_ref, k, t_lo, t_hi,
                               tq=tq, tm=tm)
-    out = _launch(q, ref, n_q, n_ref, k, t_lo, t_hi, tq, tm)
+    idx, d2, _ = _launch(q, ref, n_q, n_ref, k, t_lo, t_hi, tq, tm)
     knn_topk.launches += 1
-    return out
+    return idx, d2
 
 
 knn_topk.launches = 0
@@ -146,12 +156,14 @@ def knn_topk_dyn(q, ref, n_q, n_ref, k: int, t_lo, t_hi, *, tq: int,
     if q.device.type == "cpu":
         return knn_topk_plain(q, ref, n_q, n_ref, k, t_lo, t_hi,
                               tq=tq, tm=tm)
-    out = _launch(q, ref, n_q, n_ref, k, t_lo, t_hi, tq, tm)
+    idx, d2, K = _launch(q, ref, n_q, n_ref, k, t_lo, t_hi, tq, tm)
     knn_topk_dyn.launches += 1
-    return out
+    knn_topk_dyn.by_k[K] = knn_topk_dyn.by_k.get(K, 0) + 1
+    return idx, d2
 
 
 knn_topk_dyn.launches = 0
+knn_topk_dyn.by_k = {}   # launches by the instance the C entry reports
 
 
 def tile(n: int, prefs) -> int:

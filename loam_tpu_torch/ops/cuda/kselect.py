@@ -2,7 +2,8 @@
 and plain version (counterpart of loam_tpu/ops/pallas/kselect.py).
 
 Contract (kernel and plain version): cand (Q, C, 3) float32, valid
-(Q, C) bool, q (Q, 3) float32, 1 <= k <= min(C, 32), C <= 1024.
+(Q, C) bool, q (Q, 3) float32, 1 <= k <= C <= MAX_C (one query's row
+of candidates, 13 bytes each, in a block's 227 KB of shared memory).
 Returns pts (Q, k, 3) and d2 (Q, k), nearest first.  Distances are
 (c - q)^2 in the IEEE order round(round(dx^2 + dy^2) + dz^2), 1e30 for
 an invalid candidate.  The picks are k distinct candidate indices in
@@ -10,7 +11,8 @@ ascending (distance, index) order, the rule of a stable top-k: equal
 distances go to the lower index, duplicated candidates stay separate
 entries, and with fewer than k valid candidates the tail holds the
 lowest-index invalid ones (d2 = 1e30; callers gate on d2).
-``knn_select.launches`` counts kernel launches.
+``knn_select.launches`` counts kernel launches, ``knn_select.by_shape``
+them by (C, k).
 """
 
 from __future__ import annotations
@@ -22,16 +24,28 @@ import torch
 from ..nn import BIG
 from . import _build
 
-MAX_C = 1024
-MAX_K = 32
+SMEM_MAX = 232448    # dynamic shared memory one block may ask for
+
+
+def row_bytes(C: int) -> int:
+    """Shared memory a staged row of C candidates takes (csrc/kselect.cu
+    warp_smem_bytes): the coordinates and the validity bytes padded to
+    16."""
+    return 12 * C + -(-C // 16) * 16
+
+
+# the most candidates a row of csrc/kselect.cu (kselect_max_c); here for
+# the configuration check, which runs without the library
+MAX_C = max(C for C in range(SMEM_MAX // 12 + 1) if row_bytes(C) <= SMEM_MAX)
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
 def _check_sizes(C: int, k: int) -> None:
-    if not (1 <= k <= min(C, MAX_K) and C <= MAX_C):
+    if not 1 <= k <= C <= MAX_C:
         raise ValueError(
-            f"knn_select: k={k}, C={C} outside 1 <= k <= min(C, {MAX_K}), "
-            f"C <= {MAX_C}")
+            f"knn_select: k={k}, C={C} outside 1 <= k <= C <= {MAX_C} (one "
+            f"row of C candidates in a block's {SMEM_MAX} bytes of shared "
+            "memory)")
 
 
 def masked_sq_dists(cand, valid, q):
@@ -83,7 +97,10 @@ def knn_select(cand, valid, q, k: int):
         return knn_select_plain(cand, valid, q, k)
     out = _launch(cand.contiguous(), valid.contiguous(), q.contiguous(), k)
     knn_select.launches += 1
+    shape = (cand.shape[1], k)
+    knn_select.by_shape[shape] = knn_select.by_shape.get(shape, 0) + 1
     return out
 
 
 knn_select.launches = 0
+knn_select.by_shape = {}

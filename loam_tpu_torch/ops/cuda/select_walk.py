@@ -3,12 +3,14 @@
 
 Contract (both versions): corner_meta/flat_meta (B, R, n_sub*subw)
 int32 packed walk metadata in walk order (pack_walk_meta), picked0
-(B, R, W/32) int64 holding uint32 bit-field words.  Returns
-(sharp, less_sharp, flat, picked) bit-fields, each (B, R, W/32) int64.
+(B, R, ceil(W/32)) int64 holding uint32 bit-field words, 1 <= W <=
+MAX_W.  Returns (sharp, less_sharp, flat, picked) bit-fields, each
+(B, R, ceil(W/32)) int64; the bits past W - 1 of the last word are 0.
 corner_k / flat_k cut each corner / flat walk at that many candidates
 (config corner_scan_k / flat_scan_k; 0 or less walks the whole
 subregion).  The wrapper counts its kernel launches in
-``select_walk.launches``.
+``select_walk.launches``, and in ``select_walk.by_words`` by the words a
+lane of the kernel instance held (2, 4 or 8), as the C entry reports.
 """
 
 from __future__ import annotations
@@ -19,12 +21,16 @@ import torch
 
 from . import _build
 
-_IND_MASK = (1 << 11) - 1
-_UP_SHIFT = 11
-_DN_SHIFT = 14
-_VALID_SHIFT = 17
-_QUAL_SHIFT = 18
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 10 + (ctypes.c_void_p,)
+# ring indices in 13 bits, 8 words a kernel lane (select_walk_max_w);
+# here for the configuration check, which runs without the library
+MAX_W = 8192
+_IND_MASK = (1 << 13) - 1
+_UP_SHIFT = 13
+_DN_SHIFT = 16
+_VALID_SHIFT = 19
+_QUAL_SHIFT = 20
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 10
+             + (ctypes.POINTER(ctypes.c_int), ctypes.c_void_p))
 
 
 def walk_limit(depth: int, subw: int) -> int:
@@ -43,23 +49,30 @@ def pack_walk_meta(idxc, valid, qual, up_reach, down_reach):
     )
 
 
+def words_for(W: int) -> int:
+    """uint32 words of a W-bit bit-field."""
+    return -(-W // 32)
+
+
 def pack_bits(mask):
-    """(..., W) bool -> (..., W/32) int64 uint32 words (bit b of word w =
-    index 32w + b)."""
+    """(..., W) bool -> (..., ceil(W/32)) int64 uint32 words (bit b of
+    word w = index 32w + b; the tail of the last word 0)."""
     W = mask.shape[-1]
-    if W % 32:
-        raise ValueError(f"bit-field width {W} is not a multiple of 32")
-    m = mask.reshape(mask.shape[:-1] + (W // 32, 32)).to(torch.int64)
+    wb = words_for(W)
+    if wb * 32 != W:
+        mask = torch.cat([mask, mask.new_zeros(mask.shape[:-1]
+                                               + (wb * 32 - W,))], -1)
+    m = mask.reshape(mask.shape[:-1] + (wb, 32)).to(torch.int64)
     weights = torch.ones(32, dtype=torch.int64, device=mask.device) << \
         torch.arange(32, device=mask.device)
     return (m * weights).sum(-1)
 
 
 def unpack_bits(words, W: int):
-    """(..., W/32) int64 words -> (..., W) bool."""
+    """(..., ceil(W/32)) int64 words -> (..., W) bool."""
     shifts = torch.arange(32, device=words.device)
     bits = (words[..., None] >> shifts) & 1
-    return bits.reshape(words.shape[:-1] + (W,)).bool()
+    return bits.reshape(words.shape[:-1] + (-1,))[..., :W].bool()
 
 
 def select_walk_plain(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
@@ -127,30 +140,35 @@ def select_walk(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
               corner_k=corner_k, flat_k=flat_k)
     if corner_meta.device.type == "cpu":
         return select_walk_plain(corner_meta, flat_meta, picked0, **kw)
-    out = _launch(corner_meta, flat_meta, picked0, **kw)
+    out, nw = _launch(corner_meta, flat_meta, picked0, **kw)
     select_walk.launches += 1
+    select_walk.by_words[nw] = select_walk.by_words.get(nw, 0) + 1
     return out
 
 
 select_walk.launches = 0
+select_walk.by_words = {}   # launches by the instance the C entry reports
 
 
 def _launch(corner_meta, flat_meta, picked0, *, n_sub, subw, W, max_sharp,
             max_less_sharp, max_flat, corner_k=0, flat_k=0):
     B, R, K = corner_meta.shape
-    wb = W // 32
-    if K != n_sub * subw or W % 32 or W > 2048:
-        raise ValueError(f"select_walk: bad shape K={K} W={W}")
+    wb = words_for(W)
+    if K != n_sub * subw or not 1 <= W <= MAX_W:
+        raise ValueError(f"select_walk: bad shape K={K} W={W} (the kernel "
+                         f"takes rings of 1 to {MAX_W} points)")
     _build.require(corner_meta, torch.int32, (B, R, K), "corner_meta")
     _build.require(flat_meta, torch.int32, (B, R, K), "flat_meta")
     _build.require(picked0, torch.int64, (B, R, wb), "picked0")
     out = torch.empty((B, R, 4 * wb), dtype=torch.int64,
                       device=corner_meta.device)
+    instance = ctypes.c_int(0)
     launch = _build.entry("select_walk", _ARGTYPES)
     err = launch(*(_build.ptr(t) for t in (corner_meta, flat_meta, picked0,
                                            out)),
-                 B, R, n_sub, subw, wb, walk_limit(corner_k, subw),
+                 B, R, n_sub, subw, W, walk_limit(corner_k, subw),
                  walk_limit(flat_k, subw), max_sharp, max_less_sharp,
-                 max_flat, _build.stream_of(out))
+                 max_flat, ctypes.byref(instance), _build.stream_of(out))
     _build.check(err, "select_walk")
-    return tuple(out[..., f * wb:(f + 1) * wb] for f in range(4))
+    return (tuple(out[..., f * wb:(f + 1) * wb] for f in range(4)),
+            instance.value)

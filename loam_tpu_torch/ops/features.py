@@ -231,10 +231,11 @@ def check_selection_config(cfg: LoamConfig) -> None:
         raise ValueError("select_argmax=True is incompatible with "
                          "corner_scan_k/flat_scan_k truncation (walk-only "
                          "knobs)")
-    if cfg.ring_width > 2048 or cfg.ring_width % 32:
-        raise ValueError("the selection walk packs ring indices in 11 bits "
-                         "and bit-fields in 32-bit words: ring_width must "
-                         "be a multiple of 32 and at most 2048")
+    if not 1 <= cfg.ring_width <= SW.MAX_W:
+        raise ValueError(
+            f"ring_width={cfg.ring_width}: the selection walk packs ring "
+            f"indices in 13 bits and holds 8 bit-field words a kernel lane, "
+            f"so rings take at most {SW.MAX_W} points")
 
 
 def selection_inputs(sweep: Sweep, cfg: LoamConfig):

@@ -24,7 +24,8 @@ from loam_tpu_torch.ops.cuda import kselect as KS
 from loam_tpu_torch.ops.cuda import odom_corr as OC
 from loam_tpu_torch.ops.cuda import select_walk as SW
 
-from torch_parity import (REFUSED_K, kselect_argsort, kselect_lattice_case,
+from torch_parity import (REFUSED, REFUSED_IDS, WIDE_K, kselect_argsort,
+                          kselect_lattice_case, make_sweeps, small_config,
                           walk_kwargs, walk_meta_case, windowed_knn_case,
                           windowed_knn_scalar)
 
@@ -97,6 +98,34 @@ def test_knn_windowed_kernel_ties_and_windows(cuda, k, tq, tm):
     np.testing.assert_array_equal(d2.cpu().numpy(), want_d2)
     assert (d2[0, tq:2 * tq] < 1e29).sum() == min(k, 3) * tq
     assert (d2[1] == 1e30).all() and (idx[1] == 0).all()
+
+
+@pytest.mark.parametrize("k,tq,tm", [(k, 40, 10) for k in range(1, 33)]
+                         + [(40, 40, 10), (100, 8, 128), (812, 8, 128)])
+def test_knn_kernel_any_k_matches_plain(cuda, k, tq, tm):
+    """Every k the exact paths may ask for: the register lists of
+    K = 1-8, 12, 16, 24 and 32 (k launched at the smallest K >= k, its
+    first k columns stored) and, past 32, the lists in shared memory (4
+    warps a block at k = 40 and 100, one at the limit of 812), on the
+    lattice problems of windowed_knn_case, bit-equal to the plain version
+    and the row-at-a-time reference."""
+    case = windowed_knn_case(tq, tm, seed=k)
+    q, ref, n_q, n_ref, t_lo, t_hi = (torch.tensor(a, device=cuda)
+                                      for a in case)
+    before = dict(KN.knn_topk_dyn.by_k)
+    idx, d2 = KN.knn_topk_dyn(q, ref, n_q, n_ref, k, t_lo, t_hi, tq=tq, tm=tm)
+    # the instance the C entry reports it launched
+    K = k if k <= 8 or k > 32 else next(K for K in (12, 16, 24, 32)
+                                        if K >= k)
+    assert KN.knn_topk_dyn.by_k[K] == before.get(K, 0) + 1
+    assert idx.shape == d2.shape == (3, q.shape[1], k)
+    idx_p, d2_p = KN.knn_topk_plain(q, ref, n_q, n_ref, k, t_lo, t_hi,
+                                    tq=tq, tm=tm)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
+    want_idx, want_d2 = windowed_knn_scalar(*case, k, tq, tm)
+    np.testing.assert_array_equal(idx.cpu().numpy(), want_idx)
+    np.testing.assert_array_equal(d2.cpu().numpy(), want_d2)
 
 
 @pytest.mark.parametrize("k,margin", [(5, 1.0), (8, 2.0)])
@@ -263,24 +292,32 @@ def test_odom_corr_kernel_ties_and_ring_orders(cuda, case, surf, truncate):
         assert (out[0][0] >= 0).sum() > Q // 4
 
 
-@pytest.mark.parametrize("corner_k,flat_k",
-                         [(0, 0), (7, 7), (33, 33), (3, 0), (0, 7)])
-@pytest.mark.parametrize("W", [512, 1024, 2048])
-@pytest.mark.parametrize("B,R", [(1, 1), (1, 16), (1, 208), (8, 34)])
+WIDE_WALKS = [(B, R, W, depth, depth) for W in (1800, 3600, 8192)
+              for B, R in ((1, 16), (1, 208)) for depth in (0, 33)]
+
+
+@pytest.mark.parametrize("B,R,W,corner_k,flat_k", [
+    (B, R, W, c, f) for c, f in ((0, 0), (7, 7), (33, 33), (3, 0), (0, 7))
+    for W in (512, 1024, 2048) for B, R in ((1, 1), (1, 16), (1, 208),
+                                            (8, 34))] + WIDE_WALKS)
 def test_select_walk_kernel_matches_plain(cuda, B, R, W, corner_k, flat_k):
     """The warp-a-ring walk equals the plain version on every output, on
     the constructed meta of torch_parity.walk_meta_case (quota overflow,
     picked runs past the two staged chunks, stop candidates first, rings
     under 12 points, reaches across words and subregions, index W-1, bit
     31), the corner and flat walks cut at corner_k and flat_k candidates
-    (0: the whole subregion)."""
+    (0: the whole subregion); rings wider than 2048 (13-bit indices, 4 and
+    8 bit-field words a lane) and not a multiple of 32 (1800, 3600)."""
     cm, fm, p0, _ = walk_meta_case(B, R, W, seed=R + W + corner_k + flat_k)
     kw = walk_kwargs(LoamConfig(), W, corner_k, flat_k)
     cm, fm = (torch.tensor(a, device=cuda) for a in (cm, fm))
     p0 = SW.pack_bits(torch.tensor(p0, device=cuda))
     before = SW.select_walk.launches
+    nw = 2 if W <= 2048 else 4 if W <= 4096 else 8   # the C entry's choice
+    words = SW.select_walk.by_words.get(nw, 0)
     out = SW.select_walk(cm, fm, p0, **kw)
     assert SW.select_walk.launches == before + 1
+    assert SW.select_walk.by_words[nw] == words + 1
     plain = SW.select_walk_plain(cm, fm, p0, **kw)
     torch.cuda.synchronize()
     for a, b in zip(out, plain):
@@ -290,7 +327,9 @@ def test_select_walk_kernel_matches_plain(cuda, B, R, W, corner_k, flat_k):
 
 @pytest.mark.parametrize("Q,C,k,frac", [(300, 864, 24, 0.6), (1000, 24, 5, 0.7),
                                         (1000, 8, 5, 0.5), (37, 130, 3, 0.1),
-                                        (5, 1024, 32, 0.9)])
+                                        (5, 1024, 32, 0.9),
+                                        (300, 1296, 40, 0.6),
+                                        (300, 2160, 64, 0.6)])
 def test_kselect_kernel_matches_plain(cuda, Q, C, k, frac):
     """Coordinates and squared distances equal to the plain version, with
     duplicated candidates, exact ties (a coarse lattice), rows with fewer
@@ -313,13 +352,16 @@ def test_kselect_kernel_matches_plain(cuda, Q, C, k, frac):
 
 
 # C, k, Q: the re-rank shapes (eight lanes a query), their edges (C = 1,
-# 30, 32), the warp kernel with and without 16-byte aligned rows (33, 866),
-# its limits, Q that leaves the last group or block ragged, and Q large
-# enough that a warp walks several queries
+# 30, 32), the warp kernel with and without 16-byte aligned rows (33, 866,
+# 1298), more than 32 candidates a lane and k past 32 (1296 and 2160; 8
+# warps a block), its limit (C = 17880, one warp a block), Q that leaves
+# the last group or block ragged, and Q large enough that a warp walks
+# several queries
 KSELECT_LATTICE = [(8, 5, 37), (24, 5, 37), (24, 24, 1001), (1, 1, 9),
                    (30, 7, 37), (32, 32, 131), (33, 5, 37), (36, 32, 6000),
                    (864, 24, 37), (866, 24, 150), (1024, 32, 3000),
-                   (864, 1, 2048)]
+                   (864, 1, 2048), (1296, 40, 300), (1298, 40, 300),
+                   (2160, 64, 200), (17880, 100, 20)]
 
 
 @pytest.mark.parametrize("C,k,Q", KSELECT_LATTICE)
@@ -374,22 +416,9 @@ def test_replay_modes_agree_with_cpu(cuda):
     another order and the map's index_add atomically; one mapping solve
     moves by ~2e-4 m, and the recurrence carries it on)."""
     from loam_tpu_torch import pipeline
-    from loam_tpu_torch.io import synth
 
-    world = synth.make_world(seed=3)
-    poses = synth.straight_trajectory(4, speed=0.9, yaw_rate=0.12)
-    poses = np.vstack([poses[:1], poses])[:5]
-    sweeps = [synth.simulate_sweep(world, poses[i], poses[i + 1],
-                                   n_azimuth=480, seed=3 + i)
-              for i in range(4)]
-    raw = np.stack([s[0] for s in sweeps]).astype(np.float32)
-    msk = np.stack([s[1] for s in sweeps])
-    base = dataclasses.replace(
-        LoamConfig(), ring_width=512, max_less_flat=2048,
-        less_flat_ring_cap=256, corner_table_size=1 << 12,
-        surf_table_size=1 << 13, search_buckets=1 << 10,
-        max_corner_from_map=1024, max_surf_from_map=2048,
-        max_corner_stack=512, max_surf_stack=1024, odom_max_iters=5)
+    raw, msk, _ = make_sweeps(4)
+    base = small_config()
     for mode in (dict(map_exact_regather_every=5), dict(map_exact_knn=False)):
         cfg = dataclasses.replace(base, **mode)
         before = KS.knn_select.launches
@@ -442,14 +471,24 @@ def test_batched_replay_equals_single_replays_on_card(cuda, mode):
                                getattr(single, name)), (b, name)
 
 
+def test_kernel_limits_are_the_wrappers(cuda):
+    """The limits the configuration check holds without the libraries
+    (MAX_K, MAX_C, MAX_W) are those the libraries report."""
+    from loam_tpu_torch.ops.cuda import _build
+
+    assert _build.entry("knn_topk", (), "max_k")() == KN.MAX_K == 812
+    assert _build.entry("kselect", (), "max_c")() == KS.MAX_C == 17880
+    assert _build.entry("select_walk", (), "max_w")() == SW.MAX_W == 8192
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     """A CUDA tensor goes to the kernel or raises; nothing falls back."""
     q = torch.zeros(1, 256, 3, dtype=torch.float64, device=cuda)
     ref = torch.zeros(1, 512, 3, device=cuda)
     with pytest.raises(ValueError, match="float"):
         KN.knn_topk(q, ref, _i32([10], cuda), 1, tq=256, tm=512)
-    with pytest.raises(ValueError, match="unsupported k"):
-        KN.knn_topk(q.float(), ref, _i32([10], cuda), 3, tq=256, tm=512)
+    with pytest.raises(ValueError, match="unsupported k=813"):
+        KN.knn_topk(q.float(), ref, _i32([10], cuda), 813, tq=256, tm=512)
     with pytest.raises(ValueError, match="expected torch.bool"):
         KS.knn_select(torch.zeros(4, 8, 3, device=cuda),
                       torch.ones(4, 8, dtype=torch.uint8, device=cuda),
@@ -458,21 +497,105 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         KS.knn_select(torch.zeros(4, 8, 3, device=cuda),
                       torch.ones(4, 8, dtype=torch.bool, device=cuda),
                       torch.zeros(4, 3, device=cuda), 9)
+    with pytest.raises(ValueError, match="C=17881"):
+        KS.knn_select(torch.zeros(1, 17881, 3, device=cuda),
+                      torch.ones(1, 17881, dtype=torch.bool, device=cuda),
+                      torch.zeros(1, 3, device=cuda), 5)
+    meta = torch.zeros(1, 1, 6 * (8224 // 6 + 8), dtype=torch.int32,
+                       device=cuda)
+    with pytest.raises(ValueError, match="W=8224"):
+        SW.select_walk(meta, meta, torch.zeros(1, 1, 257, dtype=torch.int64,
+                                               device=cuda),
+                       **walk_kwargs(LoamConfig(), 8224))
 
 
-@pytest.mark.parametrize("over,match", REFUSED_K,
-                         ids=["strict", "hybrid", "cells_k", "cells_C",
-                              "cells_rerank"])
+# the kernel instance each former refusal must launch: (wrapper, its
+# tally, key)
+WIDE_K_LAUNCHES = {
+    "strict": (KN.knn_topk_dyn, "by_k", 3),
+    "hybrid": (KN.knn_topk_dyn, "by_k", 12),
+    "cells_k": (KS.knn_select, "by_shape", (864, 40)),
+    "cells_C": (KS.knn_select, "by_shape", (1080, 24)),
+}
+
+
+def _teacher_forced_mapping(raw, msk, cfg, devices):
+    """The mapping step of the last sweep from one state on each device:
+    the first F - 1 sweeps replayed on the CPU, the last sweep's odometry
+    on the CPU, then mapping.mapping_step on each device from copies of
+    that state.  Returns each device's pose_aft on the CPU."""
+    from loam_tpu_torch import frontend, mapping, odometry, pipeline
+    from loam_tpu_torch.ops.features import extract_features
+    from loam_tpu_torch.state import pipeline_state_from_numpy
+
+    from torch_parity import tree_to_numpy
+
+    _, st = pipeline.replay_sweeps(raw[:-1], msk[:-1], cfg, device="cpu",
+                                   return_state=True)
+    feats = extract_features(frontend.ingest_sweep(
+        torch.tensor(raw[-1]), torch.tensor(msk[-1]), cfg), cfg)
+    _, odom = odometry.odometry_step(st.odom, feats, cfg)
+    assert bool(odom.publish_to_mapping)
+    poses = []
+    for dev in devices:
+        state = pipeline_state_from_numpy(tree_to_numpy(st), device=dev)
+        _, out = mapping.mapping_step(
+            state.map, odom.pose.to(dev),
+            odom.corner_last.map(lambda t: t.to(dev)),
+            odom.surf_last.map(lambda t: t.to(dev)), cfg)
+        assert bool(out.solved)
+        poses.append(out.pose_aft.cpu())
+    return poses
+
+
+@pytest.mark.parametrize(
+    "over,match", [(over, None) for _, over in WIDE_K]
+    + [case[1:] for case in REFUSED],
+    ids=[name for name, _ in WIDE_K] + REFUSED_IDS)
 def test_config_refusals_match_the_cpu(cuda, over, match):
-    """A k the kernels are not built for is refused on the card with the
+    """The configurations the port once refused (torch_parity.WIDE_K)
+    replay on the card through the new kernel instances, on the CPU's
+    cadence, their first two frames within the batch's 1e-4 rad / 1e-3 m
+    of the CPU's; and the last sweep's mapping step, from one state on
+    both devices, lands within the CPU mapping tests' 1e-6 rad / 1e-5 m
+    of the CPU's.  (The later frames of a whole replay of these four
+    sweeps are no test of a bound: one ulp of the input moves the
+    frame-3 solve by up to 1.5e-4 rad or 1.35e-3 m on either device,
+    profile_torch_conditioning.py.)  What is still refused (k > C on the
+    cell path, the kernels' limits) is refused on the card with the
     CPU's ValueError, before any kernel launches."""
     from loam_tpu_torch import pipeline
 
+    wrappers = (KN.knn_topk, KN.knn_topk_dyn, OC.odom_corr, SW.select_walk,
+                KS.knn_select)
+    if match is None:
+        raw, msk, _ = make_sweeps(4)
+        cfg = dataclasses.replace(small_config(), **over)
+        name = next(n for n, o in WIDE_K if o == over)
+        fn, tally, key = WIDE_K_LAUNCHES[name]
+        before = getattr(fn, tally).get(key, 0)
+        gpu = pipeline.replay_sweeps(raw, msk, cfg)
+        assert getattr(fn, tally)[key] > before
+        assert torch.isfinite(gpu.pose_integrated).all()
+        cpu = pipeline.replay_sweeps(raw, msk, cfg, device="cpu")
+        assert torch.equal(gpu.mapped.cpu(), cpu.mapped)
+        for field in ("pose_odom", "pose_aft", "pose_integrated"):
+            diff = (getattr(gpu, field)[:2].cpu()
+                    - getattr(cpu, field)[:2]).abs()
+            print(f"{name}: {field} frames 0-1, card - CPU "
+                  f"{diff[:, :3].max():.3g} rad, {diff[:, 3:].max():.3g} m")
+            assert diff[:, :3].max() < 1e-4 and diff[:, 3:].max() < 1e-3, \
+                (field, diff)
+        step_cpu, step_gpu = _teacher_forced_mapping(raw, msk, cfg,
+                                                     ("cpu", cuda))
+        diff = (step_gpu - step_cpu).abs()
+        print(f"{name}: teacher-forced mapping step, card - CPU "
+              f"{diff[:3].max():.3g} rad, {diff[3:].max():.3g} m")
+        assert diff[:3].max() < 1e-6 and diff[3:].max() < 1e-5, diff
+        return
     cfg = dataclasses.replace(LoamConfig(), **over)
     raw = np.zeros((1, cfg.max_points, 3), np.float32)
     msk = np.ones(raw.shape[:2], bool)
-    wrappers = (KN.knn_topk, KN.knn_topk_dyn, OC.odom_corr, SW.select_walk,
-                KS.knn_select)
     before = [fn.launches for fn in wrappers]
     errors = []
     for device in ("cpu", cuda):

@@ -237,6 +237,26 @@ def test_select_walk_plain_matches_pallas_and_select_ring(W, seed):
     assert (lab_t.numpy() == 2).sum() > 0 and (lab_t.numpy() == -1).sum() > 0
 
 
+@pytest.mark.parametrize("W,seed", [(600, 5), (2400, 7)])
+def test_select_rings_wide_and_ragged_match_select_ring(W, seed):
+    """Rings wider than 2048 (13-bit indices, more bit-field words) and
+    not a multiple of 32 (a ragged last word): labels and picked masks of
+    the port's walk equal the JAX default select_ring bit for bit."""
+    cfg = dataclasses.replace(LoamConfig(), ring_width=W)
+    curv, gap, pre, n = _ring_case(8, W, seed)
+    n[2] = W                                    # a full ring: index W-1
+    lab_t, pick_t = TFT.select_rings(_t(curv), _t(gap), _t(pre), _t(n),
+                                     to_port_cfg(cfg))
+    lab_x, pick_x = jax.vmap(
+        lambda c, g, p, nn: JFT.select_ring(jnp.zeros((W, 3)), c, g, p, nn,
+                                            cfg)
+    )(jnp.asarray(curv), jnp.asarray(gap), jnp.asarray(pre), jnp.asarray(n))
+    np.testing.assert_array_equal(lab_t.numpy(), np.asarray(lab_x))
+    np.testing.assert_array_equal(pick_t.numpy(), np.asarray(pick_x))
+    assert (lab_t.numpy() == 2).sum() > 0 and (lab_t.numpy() == -1).sum() > 0
+    assert pick_t.shape == (8, W)
+
+
 @pytest.mark.parametrize("corner_k,flat_k", [(3, 3), (40, 40), (3, 40),
                                               (40, 0)])
 def test_select_rings_scan_depth_matches_select_ring(corner_k, flat_k):
@@ -285,14 +305,16 @@ def test_select_argmax_labels_match_select_rings_argmax(ties):
     assert (lab_t.numpy() == 2).sum() > 0 and (lab_t.numpy() == -1).sum() > 0
 
 
-@pytest.mark.parametrize("W", [512, 2048])
+@pytest.mark.parametrize("W", [512, 2048, 600, 3600])
 @pytest.mark.parametrize("depth", [1, 7, 32, 33, 0])
 def test_select_walk_plain_matches_serial_walk(W, depth):
     """The plain walk equals a one-candidate-at-a-time NumPy walk on
     constructed meta (torch_parity.walk_meta_case): quota overflow in
     every subregion, long picked runs, stop candidates first, rings under
     12 points, reaches across words and subregions, index W-1, bit 31;
-    at depths 1, 7, 32, 33 and the whole subregion."""
+    at depths 1, 7, 32, 33 and the whole subregion; at widths that are
+    not a multiple of 32 (600, 3600: the last word's tail stays 0) and
+    past 2048 (3600: 13-bit ring indices)."""
     B, R = 2, 6
     cm, fm, p0, kinds = walk_meta_case(B, R, W, seed=W + depth)
     kw = walk_kwargs(to_port_cfg(LoamConfig()), W, depth, depth)
@@ -300,9 +322,11 @@ def test_select_walk_plain_matches_serial_walk(W, depth):
     want, counts = serial_walk(cm.reshape(B * R, -1), fm.reshape(B * R, -1),
                                p0.reshape(B * R, W), **kw)
     for g, w in zip(got, want):
-        assert g.shape == (B, R, W // 32)
+        assert g.shape == (B, R, -(-W // 32))
         np.testing.assert_array_equal(
             TSW.unpack_bits(g, W).numpy().reshape(B * R, W), w)
+        if W % 32:                   # a ragged last word: its tail is 0
+            assert int((g[..., -1] >> (W % 32)).max()) == 0
     kind = np.array(WALK_KINDS)[kinds.reshape(-1)]
     n_walks = 2 * kw["n_sub"]
     # a short ring and stop-first walks end at their first candidates
@@ -333,12 +357,17 @@ def test_select_walk_plain_split_depths_match_serial_walk(corner_k, flat_k):
     assert want[2].any()
 
 
-def test_walk_bits_roundtrip():
+@pytest.mark.parametrize("W", [128, 600])
+def test_walk_bits_roundtrip(W):
+    """Bit-fields pack into ceil(W/32) uint32 words, the tail of a ragged
+    last word zero, and unpack to the same W bits."""
     rng = np.random.default_rng(1)
-    m = torch.tensor(rng.uniform(size=(3, 128)) < 0.3)
+    m = torch.tensor(rng.uniform(size=(3, W)) < 0.3)
     words = TSW.pack_bits(m)
+    assert words.shape == (3, -(-W // 32))
     assert int(words.max()) < 2 ** 32
-    assert torch.equal(TSW.unpack_bits(words, 128), m)
+    assert int(words[:, -1].max()) < 2 ** (W - 32 * (-(-W // 32) - 1))
+    assert torch.equal(TSW.unpack_bits(words, W), m)
 
 
 # ---- exact ties: the (distance, index) rule of odom_corr and knn_topk

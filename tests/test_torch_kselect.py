@@ -110,14 +110,15 @@ def test_knn_select_cpu_runs_plain_and_limits_raise():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     with pytest.raises(ValueError, match="k=17"):
         TK.knn_select(cand, valid, q, 17)            # k > C
-    with pytest.raises(ValueError, match="k=33"):
-        TK.knn_select(torch.zeros(2, 64, 3), torch.ones(2, 64,
-                                                        dtype=torch.bool),
-                      torch.zeros(2, 3), 33)         # k > 32
-    with pytest.raises(ValueError, match="C=1025"):
-        TK.knn_select(torch.zeros(1, 1025, 3),
-                      torch.ones(1, 1025, dtype=torch.bool),
-                      torch.zeros(1, 3), 5)
+    # k past 32 and C past 1024 run
+    pts, d2 = TK.knn_select(torch.zeros(2, 1025, 3),
+                            torch.ones(2, 1025, dtype=torch.bool),
+                            torch.zeros(2, 3), 33)
+    assert pts.shape == (2, 33, 3) and (d2 == 0).all()
+    with pytest.raises(ValueError, match="C=17881"):
+        TK.knn_select(torch.zeros(1, 17881, 3),
+                      torch.ones(1, 17881, dtype=torch.bool),
+                      torch.zeros(1, 3), 5)          # a row past 227 KB
 
 
 @pytest.mark.parametrize("C,k", [(8, 5), (24, 5), (33, 5), (864, 24)])

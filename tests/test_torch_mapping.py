@@ -26,7 +26,8 @@ from loam_tpu_torch.state import (pipeline_state_from_numpy,
                                   pipeline_state_to_numpy)
 from loam_tpu_torch.types import PointCloud
 
-from torch_parity import (REFUSED_K, assert_same_map as _assert_same_map,
+from torch_parity import (REFUSED, REFUSED_IDS, WIDE_K,
+                          assert_same_map as _assert_same_map,
                           cloud_to_torch, make_sweeps, parity_cfg,
                           pose_errors, to_port_cfg, tree_to_numpy)
 
@@ -121,15 +122,15 @@ def test_local_map_matches(mid_run):
     np.testing.assert_array_equal(tl.xyz.numpy(), np.asarray(jl.xyz))
 
 
-def test_mapping_step_matches(mid_run):
-    """One whole mapping frame from identical state against the JAX
-    mapping_step run op by op: refined pose within 1e-5 m / 1e-6 rad,
-    maps equal as sets.  The port reproduces the JAX ops one for one;
-    only sums over rows (6x6 normal equations, voxel prefix sums) are
-    grouped differently.  Jitted, XLA fuses the Gauss-Newton body and
-    rounds differently again (~2e-4 m on this frame, which is what the
-    5-frame replay test in test_torch_pipeline.py allows for)."""
+def _teacher_forced_step(mid_run, **over):
+    """One mapping frame of each package from the same state at the
+    fixture's configuration with `over` changed: loam_tpu's mapping_step
+    op by op, the port's on the CPU.  Returns (jstate, jout, tstate,
+    tout)."""
+    import dataclasses
+
     cfg, st, odom_out = mid_run
+    cfg = dataclasses.replace(cfg, **over)
     with jax.disable_jit():
         jstate, jout = JMap.mapping_step(st.map, odom_out.pose,
                                          odom_out.corner_last,
@@ -139,44 +140,66 @@ def test_mapping_step_matches(mid_run):
         tstate.map, _t(odom_out.pose),
         cloud_to_torch(odom_out.corner_last, PointCloud),
         cloud_to_torch(odom_out.surf_last, PointCloud), to_port_cfg(cfg))
+    return jstate, jout, tnew, tout
+
+
+def _assert_step_matches(jstate, jout, tnew, tout):
+    """The mapping tolerances: refined pose within 1e-5 m / 1e-6 rad,
+    maps equal as sets, the same overflow and NaN-skip counts."""
     assert bool(tout.solved) and bool(jout.solved)
     rot, trans = pose_errors(tout.pose_aft.numpy(), jout.pose_aft)
     assert rot < 1e-6 and trans < 1e-5, (rot, trans)
-    # the solve moved the pose off the prior
-    prior = np.asarray(odom_out.pose)
-    assert np.abs(np.asarray(jout.pose_aft) - prior).max() > 1e-4
     assert _assert_same_map(jstate.corner_map, tnew.corner_map) > 100
     assert _assert_same_map(jstate.surf_map, tnew.surf_map) > 100
     assert int(tnew.local_map_overflow) == int(jstate.local_map_overflow)
     assert int(tnew.nan_skips) == int(jstate.nan_skips)
 
 
-def test_surround_cloud_and_unported_modes(mid_run):
-    """The surround cloud keeps the JAX membership; a hybrid cache size
-    the kNN kernel is not built for raises, naming the supported ones."""
-    import dataclasses
+def test_mapping_step_matches(mid_run):
+    """One whole mapping frame from identical state against the JAX
+    mapping_step run op by op: refined pose within 1e-5 m / 1e-6 rad,
+    maps equal as sets.  The port reproduces the JAX ops one for one;
+    only sums over rows (6x6 normal equations, voxel prefix sums) are
+    grouped differently.  Jitted, XLA fuses the Gauss-Newton body and
+    rounds differently again (~2e-4 m on this frame, which is what the
+    5-frame replay test in test_torch_pipeline.py allows for)."""
+    jstate, jout, tnew, tout = _teacher_forced_step(mid_run)
+    _assert_step_matches(jstate, jout, tnew, tout)
+    # the solve moved the pose off the prior
+    prior = np.asarray(mid_run[2].pose)
+    assert np.abs(np.asarray(jout.pose_aft) - prior).max() > 1e-4
 
+
+def test_surround_cloud_and_unported_modes(mid_run):
+    """The surround cloud keeps the JAX membership; a hybrid cache of 16
+    (a gather the kNN kernel once refused) steps as loam_tpu's does."""
     cfg, st, _ = mid_run
     tstate = pipeline_state_from_numpy(tree_to_numpy(st), device="cpu")
     cloud = TMap.surround_cloud(tstate.map, cap=4096)
     jcloud = JMap.surround_cloud(st.map, cap=4096)
     np.testing.assert_array_equal(cloud.mask.numpy(), np.asarray(jcloud.mask))
-    bad = dataclasses.replace(to_port_cfg(cfg), map_exact_regather_every=5,
-                              map_exact_cache_k=12)
-    with pytest.raises(ValueError, match=r"\(1, 5, 8\)"):
-        TMap.mapping_step(tstate.map, torch.zeros(6),
-                          PointCloud.zeros(cfg.max_less_sharp),
-                          PointCloud.zeros(cfg.max_less_flat), bad)
+    _assert_step_matches(*_teacher_forced_step(
+        mid_run, map_exact_regather_every=5, map_exact_cache_k=16))
 
 
-@pytest.mark.parametrize("over,match", REFUSED_K,
-                         ids=["strict", "hybrid", "cells_k", "cells_C",
-                              "cells_rerank"])
+@pytest.mark.parametrize("over", [over for _, over in WIDE_K],
+                         ids=[name for name, _ in WIDE_K])
+def test_mapping_step_matches_at_former_refusals(mid_run, over):
+    """The k and C the neighbour kernels once lacked (an exact k outside
+    1, 5 and 8, a cell gather past k = 32 or C = 1024) now run: a
+    teacher-forced mapping step at each equals loam_tpu's within the
+    mapping tolerances."""
+    _assert_step_matches(*_teacher_forced_step(mid_run, **over))
+
+
+@pytest.mark.parametrize("over,match", [case[1:] for case in REFUSED],
+                         ids=REFUSED_IDS)
 def test_config_refuses_k_the_kernels_lack(monkeypatch, over, match):
-    """A k that csrc/knn_topk.cu or csrc/kselect.cu is not built for is
-    refused before any frame is processed, by the replay and by the
-    streaming engine, on the CPU as on the card (test_torch_cuda.py),
-    though the CPU's plain versions could run it."""
+    """A cell-path re-rank at k > C (loam_tpu's lax.top_k refuses it too),
+    or a size past a kernel's stated limit, is refused before any frame
+    is processed, by the replay and by the streaming engine, on the CPU
+    as on the card (test_torch_cuda.py), with a ValueError that names the
+    limit."""
     import dataclasses
 
     from loam_tpu_torch import pipeline as TP

@@ -55,19 +55,33 @@ def parity_cfg(**kw):
     return dataclasses.replace(_tiny_cfg(), **base)
 
 
-# configurations loam_tpu runs and the port refuses up front, because a
-# neighbour kernel of the card is not built for their k: (config
-# changes, a pattern of the ValueError), one each for the strict exact
-# k-NN, the hybrid gather, and the cell path's gather (k > 32, C > 1024)
-# and re-rank (k > C)
-REFUSED_K = (
-    (dict(map_knn=3), r"map_knn=3: the strict exact k-NN"),
-    (dict(map_exact_regather_every=5, map_exact_cache_k=12),
-     r"map_exact_cache_k=12 .*\(1, 5, 8\)"),
-    (dict(map_exact_knn=False, knn_candidates=40), r"knn_candidates=40"),
-    (dict(map_exact_knn=False, search_bucket_cap=40), r"C=1080"),
-    (dict(map_exact_knn=False, knn_candidates=4), r"map_knn=5 from C="),
+# configurations that the port refused before any frame while its
+# neighbour kernels were built for k in (1, 5, 8), kselect for k <= 32
+# and C <= 1024: (test id, config changes), one each for the strict
+# exact k-NN, the hybrid gather, and the cell path's gather at k > 32
+# and at C > 1024
+WIDE_K = (
+    ("strict", dict(map_knn=3)),
+    ("hybrid", dict(map_exact_regather_every=5, map_exact_cache_k=12)),
+    ("cells_k", dict(map_exact_knn=False, knn_candidates=40)),
+    ("cells_C", dict(map_exact_knn=False, search_bucket_cap=40)),
 )
+
+# configurations the port refuses up front, with a pattern of the
+# ValueError that names the limit: (test id, config changes, pattern).
+# The cell path's re-rank at k > C, which loam_tpu's lax.top_k refuses
+# too, and the limits of the kernels: rings of more than 8192 points,
+# an exact k past the lists one block holds, C past one staged row
+REFUSED = (
+    ("cells_rerank", dict(map_exact_knn=False, knn_candidates=4),
+     r"map_knn=5 from C=knn_candidates=4 .*1 <= k <= C <= 17880"),
+    ("ring_width", dict(ring_width=8224),
+     r"ring_width=8224: .*at most 8192 points"),
+    ("exact_k", dict(map_knn=813), r"map_knn=813 .*1 <= k <= 812"),
+    ("cells_row", dict(map_exact_knn=False, search_bucket_cap=663),
+     r"C=17901 .*1 <= k <= C <= 17880"),
+)
+REFUSED_IDS = [case[0] for case in REFUSED]
 
 
 def to_port_cfg(jcfg) -> PortConfig:
@@ -87,6 +101,17 @@ def make_sweeps(frames: int, seed: int = 3, n_azimuth: int = 480,
     raw = np.stack([s[0] for s in sweeps]).astype(np.float32)
     msk = np.stack([s[1] for s in sweeps])
     return raw, msk, poses
+
+
+def small_config() -> PortConfig:
+    """The port's configuration for a few sweeps of make_sweeps: rings of
+    512, small tables and caps, five odometry iterations."""
+    return dataclasses.replace(
+        PortConfig(), ring_width=512, max_less_flat=2048,
+        less_flat_ring_cap=256, corner_table_size=1 << 12,
+        surf_table_size=1 << 13, search_buckets=1 << 10,
+        max_corner_from_map=1024, max_surf_from_map=2048,
+        max_corner_stack=512, max_surf_stack=1024, odom_max_iters=5)
 
 
 def pose_errors(a, b):
@@ -255,7 +280,8 @@ def walk_meta_case(B: int, R: int, W: int, n_sub: int = 6, seed: int = 0):
                 if kind == "picked_runs":
                     order = np.arange(subw)
                 elif kind == "edges":
-                    key = np.where(idx % 32 == 31, 0, 2) - (idx == W - 1)
+                    key = np.where(idx == W - 1, -1,
+                                   np.where(idx % 32 == 31, 0, 2))
                     order = np.argsort(key, kind="stable")
                 order = np.concatenate([order[live[order]],
                                         order[~live[order]]])
@@ -303,8 +329,11 @@ def serial_walk(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
                 cnt = steps = picks = 0
                 for m in meta[:subw if depth <= 0 else min(depth, subw)]:
                     steps += 1
-                    ind, up, dn = m & 0x7FF, (m >> 11) & 7, (m >> 14) & 7
-                    if not ((m >> 17) & 1 and (m >> 18) & 1):
+                    ind = m & SW._IND_MASK
+                    up = (m >> SW._UP_SHIFT) & 7
+                    dn = (m >> SW._DN_SHIFT) & 7
+                    if not ((m >> SW._VALID_SHIFT) & 1
+                            and (m >> SW._QUAL_SHIFT) & 1):
                         break                     # processed, then stop
                     if picked[ind]:
                         continue
