@@ -133,7 +133,8 @@ Phases, each of which raises (non-zero exit) on failure:
      map at search_bucket_cap=48 (C = 1296) and knn_candidates=40, each
      within 5 cm integrated ATE of the NumPy oracle (run in a process of
      its own beside the earlier phases) and each launching its new
-     kernel instances (the walk's 4 words a lane; K=16; C=1296, k=40);
+     kernel instances (the walk's 4 words a lane; the k-NN's warp queue
+     of W=32 at k=16; C=1296, k=40);
      then (d) `python -m loam_tpu_torch --synthetic 8 --ring-width 1800
      --golden-compare` as a subprocess, its verdict under 5 cm.  Prints
      what the feature caps cut, the local map's overflow, frames/s.
@@ -188,6 +189,11 @@ EARLIER_MS = {
                       "B=1,Q=8192,M=65536,": 0.2228}),
     "knn_topk_dyn_k8": ("the one-thread-a-query kernel", "on the device",
                         {"B=1,Q=8192,M=65536,": 0.3545}),
+    "knn_topk_dyn_k16": ("the per-lane lists", "on the device",
+                         {"B=1,Q=2048,M=4096,live=1153x3587,k=12,": 0.0289,
+                          "B=1,Q=2048,M=4096,live=1153x3587,k=40,": 0.2869,
+                          "B=1,Q=8192,M=65536,live=8192x50000,k=16,":
+                          0.1927}),
     "kselect": ("the one-warp-a-query kernel", "on the device",
                 {"Q=8192,C=8,k=5,": 0.0093, "Q=8192,C=24,k=5,": 0.0091,
                  "Q=2048,C=864,k=24,": 0.0276}),
@@ -303,7 +309,7 @@ DENSE_MODES = {
     "dense hybrid": (dict(map_exact_regather_every=5, map_exact_cache_k=16),
                      ("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk",
                       "knn_select"), (),
-                     {"knn_topk_dyn": [16], "knn_select": [(16, 5)],
+                     {"knn_topk_dyn": [32], "knn_select": [(16, 5)],
                       "select_walk": [DENSE_WORDS]}),
     "dense cells": (dict(map_exact_knn=False, search_bucket_cap=48,
                          knn_candidates=40),
@@ -496,6 +502,32 @@ def _library_knn(q, ref, k):
     return torch.cdist(q, ref).topk(k, dim=-1, largest=False)
 
 
+def sorted_cloud(rng, dev, B, Q, M, n_q, n_ref_i, margin, tq, tm):
+    """B slabs of n_ref_i references (120 x 40 x 10 m) sorted on x, n_q
+    queries around them (0.3 m of noise) sorted on x, and each scenario's
+    tile windows at the gate `margin`: the mapping k-NN's shape.  Returns
+    tensors on dev (q (B, Q, 3), ref (B, M, 3), t_lo, t_hi)."""
+    from loam_tpu_torch.ops.cuda import knn_topk as KN
+
+    half = np.array([60.0, 20.0, 5.0])
+    refp = np.zeros((B, M, 3), np.float32)
+    qp = np.zeros((B, Q, 3), np.float32)
+    for b in range(B):
+        ref_np = rng.uniform(-half, half, (n_ref_i, 3)).astype(np.float32)
+        ref_np = ref_np[np.argsort(ref_np[:, 0], kind="stable")]
+        refp[b, :n_ref_i] = ref_np
+        q_np = ref_np[rng.integers(0, n_ref_i, n_q)] + rng.normal(
+            0, 0.3, (n_q, 3))
+        qp[b, :n_q] = q_np[np.argsort(q_np[:, 0], kind="stable")]
+    q = torch.tensor(qp, device=dev)
+    ref = torch.tensor(refp, device=dev)
+    mask = torch.arange(M, device=dev) < n_ref_i
+    t_lo, t_hi = KN.tile_windows(
+        q[..., 0], torch.full((B,), n_q, dtype=torch.int32, device=dev),
+        ref[..., 0], mask.expand(B, M), tq, tm, margin + 1e-3)
+    return q, ref, t_lo.contiguous(), t_hi.contiguous()
+
+
 def kernel_phase(dev, raw, msk, cfg, imu, dense):
     """Each kernel vs its plain version at the replays' shapes (dense:
     phase 12's sweeps).  Returns one row a kernel (its largest shape),
@@ -607,27 +639,6 @@ def kernel_phase(dev, raw, msk, cfg, imu, dense):
             **bound(B * (12 * (n_q + n_ref_i) + 8 * k * blocks * tq),
                     PAIR_OPS * pairs))
 
-    def sorted_cloud(B, Q, M, n_q, n_ref_i, margin, tq, tm):
-        """B slabs of sorted references with queries around them, and
-        each scenario's tile windows."""
-        half = np.array([60.0, 20.0, 5.0])
-        refp = np.zeros((B, M, 3), np.float32)
-        qp = np.zeros((B, Q, 3), np.float32)
-        for b in range(B):
-            ref_np = rng.uniform(-half, half, (n_ref_i, 3)).astype(np.float32)
-            ref_np = ref_np[np.argsort(ref_np[:, 0], kind="stable")]
-            refp[b, :n_ref_i] = ref_np
-            q_np = ref_np[rng.integers(0, n_ref_i, n_q)] + rng.normal(
-                0, 0.3, (n_q, 3))
-            qp[b, :n_q] = q_np[np.argsort(q_np[:, 0], kind="stable")]
-        q = torch.tensor(qp, device=dev)
-        ref = torch.tensor(refp, device=dev)
-        mask = torch.arange(M, device=dev) < n_ref_i
-        t_lo, t_hi = KN.tile_windows(
-            q[..., 0], torch.full((B,), n_q, **i32), ref[..., 0],
-            mask.expand(B, M), tq, tm, margin + 1e-3)
-        return q, ref, t_lo.contiguous(), t_hi.contiguous()
-
     tq, tm = 256, 512
     for k, margin, name in ((5, 1.0, "knn_topk_dyn"),
                             (8, 2.0, "knn_topk_dyn_k8")):
@@ -646,8 +657,8 @@ def kernel_phase(dev, raw, msk, cfg, imu, dense):
         for B, Q, M, n_q, n_ref_i in sizes if k == 5 else sizes[1:]:
             if k == 5 and B > 1:
                 continue
-            q, ref, t_lo, t_hi = sorted_cloud(B, Q, M, n_q, n_ref_i,
-                                              margin, tq, tm)
+            q, ref, t_lo, t_hi = sorted_cloud(rng, dev, B, Q, M, n_q,
+                                              n_ref_i, margin, tq, tm)
             shapes.append(windowed(name, k, q, ref, n_q, n_ref_i, t_lo,
                                    t_hi, tq, tm))
         add(name, "knn_topk_dyn", "loam_tpu_torch/csrc/knn_topk.cu",
@@ -707,11 +718,12 @@ def kernel_phase(dev, raw, msk, cfg, imu, dense):
         add(name, "odom_corr", "loam_tpu_torch/csrc/odom_corr.cu",
             "loam_tpu/ops/pallas/odom_corr.py:65", shapes)
 
-    # ---- knn_topk_dyn at k other than 1, 5 and 8: the register lists of
-    # K = 3 and 12 and the shared-memory lists at k = 40 on the lattice
-    # shape, then the dense cell's hybrid gather (phase 12 b:
-    # map_exact_cache_k = 16, margin 2 m) at the caps its sweeps fill,
-    # the whole surf stack against 50000 map points
+    # ---- knn_topk_dyn at k other than 1, 5 and 8: the register lists
+    # at K = 3 and the warp queue at k = 12, 24, 32, 40, 100 and MAX_K
+    # on the lattice shape, then the dense cell's hybrid gather (phase
+    # 12 b: map_exact_cache_k = 16, margin 2 m) at the caps its sweeps
+    # fill, the whole surf stack against 50000 map points, at k = 24, 32
+    # and 40 and last at its own k = 16
     Q, M = 8 * tq, 8 * tm
     t_lo = torch.tensor([[0, 7, 3, 2, -1, 0, 0, 0]], **i32)
     t_hi = torch.tensor([[8, 8, 3, 5, 99, 8, 8, 8]], **i32)
@@ -719,11 +731,11 @@ def kernel_phase(dev, raw, msk, cfg, imu, dense):
     r_l = torch.tensor(lattice(rng, (1, M, 3)), device=dev)
     shapes = [windowed("knn_topk_dyn_k16", k, q_l, r_l, 4 * tq + tq // 2 + 1,
                        7 * tm + 3, t_lo, t_hi, tq, tm, ",lattice")
-              for k in (3, 12, 40)]
-    q, ref, t_lo, t_hi = sorted_cloud(1, 8192, 65536, 8192, 50000, 2.0, tq,
-                                      tm)
-    shapes.append(windowed("knn_topk_dyn_k16", 16, q, ref, 8192, 50000, t_lo,
-                           t_hi, tq, tm))
+              for k in (3, 12, 24, 32, 40, 100, KN.MAX_K)]
+    q, ref, t_lo, t_hi = sorted_cloud(rng, dev, 1, 8192, 65536, 8192, 50000,
+                                      2.0, tq, tm)
+    shapes += [windowed("knn_topk_dyn_k16", k, q, ref, 8192, 50000, t_lo,
+                        t_hi, tq, tm) for k in (24, 32, 40, 16)]
     add("knn_topk_dyn_k16", "knn_topk_dyn", "loam_tpu_torch/csrc/knn_topk.cu",
         "loam_tpu/ops/pallas/knn_topk.py:133", shapes)
 

@@ -89,16 +89,15 @@ def _hybrid(cfg: LoamConfig) -> bool:
 def check_mapping_config(cfg: LoamConfig) -> None:
     """Refuse, before any work and on every device, what the neighbour
     kernels of the card cannot take: an exact k-NN past the kernel's
-    MAX_K (csrc/knn_topk.cu keeps each lane's list in shared memory past
-    k = 32), and a cell-path selection with k > C (loam_tpu's lax.top_k
-    refuses it too) or C past one block's shared memory
-    (csrc/kselect.cu)."""
+    MAX_K (csrc/knn_topk.cu's widest warp queue), and a cell-path
+    selection with k > C (loam_tpu's lax.top_k refuses it too) or C past
+    one block's shared memory (csrc/kselect.cu)."""
     def exact(k, what):
         if not 1 <= k <= KNN_MAX_K:
             raise ValueError(
                 f"{what}: the exact k-NN (csrc/knn_topk.cu) takes 1 <= k <= "
-                f"{KNN_MAX_K}, the lists of one warp in a block's 227 KB of "
-                "shared memory")
+                f"{KNN_MAX_K}, its widest warp queue (32 pairs in each "
+                "lane's registers)")
 
     def select(k, C, what):
         if not 1 <= k <= C <= KSELECT_MAX_C:

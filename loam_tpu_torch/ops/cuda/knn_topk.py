@@ -11,11 +11,12 @@ t_lo[b] <= j // tm < t_hi[b].  Returns idx (B, Q, k) int32 and
 d2 (B, Q, k) float32, nearest first, ties to the smaller index, exact
 fp32 distances; missing neighbours and dead blocks read (index 0,
 d2 = 1e30).  Any 1 <= k <= MAX_K: the kernel (csrc/knn_topk.cu) keeps
-each lane's candidates in registers up to k = 32 (a template instance
-K >= k, its first k columns stored) and in shared memory past it.  Each
+a sorted list of k pairs a lane in registers up to k = 8, and past it
+one queue of W >= k pairs for the whole warp, spread over the lanes'
+registers (W a power of two from 32, its first k pairs stored).  Each
 wrapper counts its kernel launches in ``.launches``, and knn_topk_dyn's
-also in ``.by_k`` by the instance the C entry reports it launched (K of
-a register list, k of the shared-memory lists).
+also in ``.by_k`` by the instance the C entry reports it launched (k of
+the per-lane lists, W of the warp queue).
 
 ``knn_topk`` is the special case of every query against the whole live
 reference.  At k = 1 on the card it runs a kernel of its own
@@ -36,10 +37,10 @@ from ...types import per_scenario
 from ..nn import BIG, pairwise_sq_dists
 from . import _build
 
-# the largest k of csrc/knn_topk.cu (knn_topk_max_k): the lists of one
-# warp in a block's 227 KB beside the two staged slices of 1024 points;
-# here for the configuration check, which runs without the library
-MAX_K = (232448 - 2 * 3 * 1024 * 4) // (32 * 8)
+# the largest k of csrc/knn_topk.cu (knn_topk_max_k): its widest warp
+# queue, 32 (d2, index) pairs in each lane's registers; here for the
+# configuration check, which runs without the library
+MAX_K = 1024
 _ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
              + (ctypes.POINTER(ctypes.c_int), ctypes.c_void_p))
 _NEAREST_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3

@@ -100,23 +100,34 @@ def test_knn_windowed_kernel_ties_and_windows(cuda, k, tq, tm):
     assert (d2[1] == 1e30).all() and (idx[1] == 0).all()
 
 
+# the queue sizes' edges: k = 2^n and 2^n + 1 from 32 to the limit
+QUEUE_EDGES = [(k, 8, 128) for k in (33, 64, 65, 128, 129, 256, 257, 512,
+                                     513)] + [(1024, 8, 256)]
+
+
+def knn_instance(k):
+    """The instance knn_topk_launch reports for k: k itself for the
+    per-lane lists (k <= 8), else W of the warp queue, the smallest power
+    of two >= k from 32."""
+    return k if k <= 8 else max(32, 1 << (k - 1).bit_length())
+
+
 @pytest.mark.parametrize("k,tq,tm", [(k, 40, 10) for k in range(1, 33)]
-                         + [(40, 40, 10), (100, 8, 128), (812, 8, 128)])
+                         + [(40, 40, 10), (100, 8, 128), (812, 8, 128)]
+                         + QUEUE_EDGES)
 def test_knn_kernel_any_k_matches_plain(cuda, k, tq, tm):
-    """Every k the exact paths may ask for: the register lists of
-    K = 1-8, 12, 16, 24 and 32 (k launched at the smallest K >= k, its
-    first k columns stored) and, past 32, the lists in shared memory (4
-    warps a block at k = 40 and 100, one at the limit of 812), on the
-    lattice problems of windowed_knn_case, bit-equal to the plain version
-    and the row-at-a-time reference."""
+    """Every k the exact paths may ask for: the per-lane register lists
+    at k = 1-8 and, past 8, the warp queue of W = 32 to 1024 pairs (k
+    launched at the smallest W >= k, its first k pairs stored; each
+    size's edges), on the lattice problems of windowed_knn_case (blocks
+    with fewer than k visible references among them), bit-equal to the
+    plain version and the row-at-a-time reference."""
     case = windowed_knn_case(tq, tm, seed=k)
     q, ref, n_q, n_ref, t_lo, t_hi = (torch.tensor(a, device=cuda)
                                       for a in case)
     before = dict(KN.knn_topk_dyn.by_k)
     idx, d2 = KN.knn_topk_dyn(q, ref, n_q, n_ref, k, t_lo, t_hi, tq=tq, tm=tm)
-    # the instance the C entry reports it launched
-    K = k if k <= 8 or k > 32 else next(K for K in (12, 16, 24, 32)
-                                        if K >= k)
+    K = knn_instance(k)
     assert KN.knn_topk_dyn.by_k[K] == before.get(K, 0) + 1
     assert idx.shape == d2.shape == (3, q.shape[1], k)
     idx_p, d2_p = KN.knn_topk_plain(q, ref, n_q, n_ref, k, t_lo, t_hi,
@@ -126,6 +137,35 @@ def test_knn_kernel_any_k_matches_plain(cuda, k, tq, tm):
     want_idx, want_d2 = windowed_knn_scalar(*case, k, tq, tm)
     np.testing.assert_array_equal(idx.cpu().numpy(), want_idx)
     np.testing.assert_array_equal(d2.cpu().numpy(), want_d2)
+
+
+@pytest.mark.parametrize("k", [16, 40])
+def test_knn_warp_queue_sorted_slabs(cuda, k):
+    """The warp queue on the mapping k-NN's data (chip_smoke.sorted_cloud:
+    slabs of references sorted on x, queries around them, 2 m tile
+    windows), two scenarios in one launch, bit-equal to the plain version
+    and the row-at-a-time reference."""
+    import chip_smoke
+
+    rng = np.random.default_rng(k)
+    B, Q, M, n_q, n_ref, tq, tm = 2, 2048, 16384, 1500, 12000, 256, 512
+    q, ref, t_lo, t_hi = chip_smoke.sorted_cloud(rng, cuda, B, Q, M, n_q,
+                                                 n_ref, 2.0, tq, tm)
+    nq_t, nr_t = _i32([n_q] * B, cuda), _i32([n_ref] * B, cuda)
+    before = dict(KN.knn_topk_dyn.by_k)
+    idx, d2 = KN.knn_topk_dyn(q, ref, nq_t, nr_t, k, t_lo, t_hi, tq=tq,
+                              tm=tm)
+    K = knn_instance(k)
+    assert KN.knn_topk_dyn.by_k[K] == before.get(K, 0) + 1
+    idx_p, d2_p = KN.knn_topk_plain(q, ref, nq_t, nr_t, k, t_lo, t_hi,
+                                    tq=tq, tm=tm)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
+    case = [t.cpu().numpy() for t in (q, ref, nq_t, nr_t, t_lo, t_hi)]
+    want_idx, want_d2 = windowed_knn_scalar(*case, k, tq, tm)
+    np.testing.assert_array_equal(idx.cpu().numpy(), want_idx)
+    np.testing.assert_array_equal(d2.cpu().numpy(), want_d2)
+    assert (d2[:, :n_q] < 1e29).all()      # every live row finds k
 
 
 @pytest.mark.parametrize("k,margin", [(5, 1.0), (8, 2.0)])
@@ -476,7 +516,7 @@ def test_kernel_limits_are_the_wrappers(cuda):
     (MAX_K, MAX_C, MAX_W) are those the libraries report."""
     from loam_tpu_torch.ops.cuda import _build
 
-    assert _build.entry("knn_topk", (), "max_k")() == KN.MAX_K == 812
+    assert _build.entry("knn_topk", (), "max_k")() == KN.MAX_K == 1024
     assert _build.entry("kselect", (), "max_c")() == KS.MAX_C == 17880
     assert _build.entry("select_walk", (), "max_w")() == SW.MAX_W == 8192
 
@@ -487,8 +527,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     ref = torch.zeros(1, 512, 3, device=cuda)
     with pytest.raises(ValueError, match="float"):
         KN.knn_topk(q, ref, _i32([10], cuda), 1, tq=256, tm=512)
-    with pytest.raises(ValueError, match="unsupported k=813"):
-        KN.knn_topk(q.float(), ref, _i32([10], cuda), 813, tq=256, tm=512)
+    with pytest.raises(ValueError, match="unsupported k=1025"):
+        KN.knn_topk(q.float(), ref, _i32([10], cuda), 1025, tq=256, tm=512)
     with pytest.raises(ValueError, match="expected torch.bool"):
         KS.knn_select(torch.zeros(4, 8, 3, device=cuda),
                       torch.ones(4, 8, dtype=torch.uint8, device=cuda),
@@ -513,7 +553,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 # tally, key)
 WIDE_K_LAUNCHES = {
     "strict": (KN.knn_topk_dyn, "by_k", 3),
-    "hybrid": (KN.knn_topk_dyn, "by_k", 12),
+    "hybrid": (KN.knn_topk_dyn, "by_k", 32),
     "cells_k": (KS.knn_select, "by_shape", (864, 40)),
     "cells_C": (KS.knn_select, "by_shape", (1080, 24)),
 }

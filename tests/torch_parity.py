@@ -71,13 +71,13 @@ WIDE_K = (
 # ValueError that names the limit: (test id, config changes, pattern).
 # The cell path's re-rank at k > C, which loam_tpu's lax.top_k refuses
 # too, and the limits of the kernels: rings of more than 8192 points,
-# an exact k past the lists one block holds, C past one staged row
+# an exact k past the widest warp queue, C past one staged row
 REFUSED = (
     ("cells_rerank", dict(map_exact_knn=False, knn_candidates=4),
      r"map_knn=5 from C=knn_candidates=4 .*1 <= k <= C <= 17880"),
     ("ring_width", dict(ring_width=8224),
      r"ring_width=8224: .*at most 8192 points"),
-    ("exact_k", dict(map_knn=813), r"map_knn=813 .*1 <= k <= 812"),
+    ("exact_k", dict(map_knn=1025), r"map_knn=1025 .*1 <= k <= 1024"),
     ("cells_row", dict(map_exact_knn=False, search_bucket_cap=663),
      r"C=17901 .*1 <= k <= C <= 17880"),
 )
