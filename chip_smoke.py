@@ -197,6 +197,11 @@ EARLIER_MS = {
     "kselect": ("the one-warp-a-query kernel", "on the device",
                 {"Q=8192,C=8,k=5,": 0.0093, "Q=8192,C=24,k=5,": 0.0091,
                  "Q=2048,C=864,k=24,": 0.0276}),
+    "kselect_dense": ("the kernel that staged whole rows", "on the device",
+                      {"Q=1024,C=1296,k=40,": 0.0223,
+                       "Q=8192,C=40,k=5,": 0.0080,
+                       "Q=2048,C=1296,k=40,": 0.0410,
+                       "Q=8192,C=64,k=5,": 0.0081}),
     "select_walk": ("the one-thread-a-ring kernel", "on the device",
                     {"B=1,R=16,": 0.0919, "B=8,R=272,": 0.1188,
                      "B=1,R=208,": 0.1137}),
@@ -750,8 +755,8 @@ def kernel_phase(dev, raw, msk, cfg, imu, dense):
     # duplicated, some rows with fewer than k valid); the hybrid re-rank
     # also at the batch's BATCH_B x 8192 rows.  Then the dense cell's
     # (phase 12 c): lattice candidates at its gather shape, its re-rank
-    # (C=40, k=5) and its gather chunk (search_bucket_cap 48: C=1296,
-    # k=40)
+    # (C=40, k=5), its gather chunk (search_bucket_cap 48: C=1296,
+    # k=40) and the widest re-rank of the group kernel (C=64)
     def selection(Q, C, k, ties):
         if ties:
             q_np = lattice(rng, (Q, 3))
@@ -792,6 +797,7 @@ def kernel_phase(dev, raw, msk, cfg, imu, dense):
                          (8192, 24, 5, False), (2048, 864, 1, False),
                          (2048, 864, 24, False))),
             ("kselect_dense", ((1024, 1296, 40, True), (8192, 40, 5, False),
+                               (8192, 64, 5, False),
                                (2048, 1296, 40, False)))):
         add(name, "knn_select", "loam_tpu_torch/csrc/kselect.cu",
             "loam_tpu/ops/pallas/kselect.py:33",

@@ -89,16 +89,13 @@ namespace {
 constexpr int kWarps = 4;     // warps (queries) a block
 constexpr int kSlice = 1024;  // reference points a staged slice; % 32 == 0
 constexpr int kMaxK = 1024;   // the widest warp queue: 32 pairs a lane
-// +inf for code that the host compiler sees too (CUDART_INF_F is a
-// device intrinsic)
-constexpr float kInf = __builtin_huge_valf();
 
 // A lane's K best (d2, index) pairs, sorted, in registers.
 template <int K>
 struct RegList {
   float d[K];
   int32_t i[K];
-  __device__ __forceinline__ RegList(unsigned char*, int, int) {
+  __device__ __forceinline__ RegList() {
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       d[s] = CUDART_INF_F;
@@ -128,7 +125,7 @@ struct LaneLists {
   RegList<K> list;
   int k, lane;
   __device__ __forceinline__ LaneLists(int k_, int lane_)
-      : list(nullptr, K, lane_), k(k_), lane(lane_) {}
+      : k(k_), lane(lane_) {}
 
   // the slice t[3 n] of references base, base + 1, ...
   __device__ __forceinline__ void scan(const float* t, int n, int base,
@@ -170,21 +167,6 @@ struct LaneLists {
     }
   }
 };
-
-// A (d2, index) pair as one key that orders like the pair: d2 is never
-// negative (a sum of squares, never -0), so its bits order like its
-// value, and the index fills the low word.
-using Key = unsigned long long;
-constexpr Key kEmptyKey = (Key{0x7f800000u} << 32) | Key{0x7fffffffu};
-
-__device__ __forceinline__ Key pair_key(float d, int i) {
-  return (static_cast<Key>(__float_as_uint(d)) << 32) |
-         static_cast<unsigned>(i);
-}
-
-__device__ __forceinline__ float key_dist(Key x) {
-  return __uint_as_float(static_cast<unsigned>(x >> 32));
-}
 
 // One compare-exchange step of a bitonic network over the warp-wide
 // array a (element e = r * 32 + lane in register r): e meets e ^ J, and
@@ -307,8 +289,7 @@ struct WarpQueue {
         const float d = key_dist(q[r]);
         const bool found = d < kInf;
         d2[c] = found ? d : kBig;
-        idx[c] = found ? static_cast<int32_t>(static_cast<unsigned>(q[r]))
-                       : 0;
+        idx[c] = found ? key_index(q[r]) : 0;
       }
     }
   }

@@ -1,7 +1,8 @@
 // Warp-level pieces shared by the neighbour-selection kernels
 // (knn_topk.cu, kselect.cu): asynchronous copies from device memory into
-// shared memory, the warp-wide minimum of a (distance, index) pair, and a
-// sorted insert into a short register list.
+// shared memory, the warp-wide minimum of a (distance, index) pair, a
+// sorted insert into a short register list, and a (distance, index) pair
+// as one 64-bit key.
 
 #pragma once
 
@@ -10,6 +11,9 @@
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kNoIndex = 0x7fffffff;  // the index of an empty entry
+// +inf for code that the host compiler sees too (CUDART_INF_F is a
+// device intrinsic)
+constexpr float kInf = __builtin_huge_valf();
 
 // cp.async: the copy is issued and the thread goes on; it lands before
 // cp_async_wait<N>() returns with at most N committed groups pending.
@@ -88,4 +92,24 @@ __device__ __forceinline__ void sorted_insert(float (&bd)[K], int (&bi)[K],
     bd[0] = d;
     bi[0] = i;
   }
+}
+
+// A (d2, index) pair as one key that orders like the pair: d2 is never
+// negative (a sum of squares, never -0), so its bits order like its
+// value, and the index fills the low word.  The empty key (+inf,
+// kNoIndex) is above every pair.
+using Key = unsigned long long;
+constexpr Key kEmptyKey = (Key{0x7f800000u} << 32) | Key{0x7fffffffu};
+
+__device__ __forceinline__ Key pair_key(float d, int i) {
+  return (static_cast<Key>(__float_as_uint(d)) << 32) |
+         static_cast<unsigned>(i);
+}
+
+__device__ __forceinline__ float key_dist(Key x) {
+  return __uint_as_float(static_cast<unsigned>(x >> 32));
+}
+
+__device__ __forceinline__ int key_index(Key x) {
+  return static_cast<int>(static_cast<unsigned>(x));
 }

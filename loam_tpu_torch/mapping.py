@@ -91,7 +91,7 @@ def check_mapping_config(cfg: LoamConfig) -> None:
     kernels of the card cannot take: an exact k-NN past the kernel's
     MAX_K (csrc/knn_topk.cu's widest warp queue), and a cell-path
     selection with k > C (loam_tpu's lax.top_k refuses it too) or C past
-    one block's shared memory (csrc/kselect.cu)."""
+    the kernel's MAX_C (csrc/kselect.cu)."""
     def exact(k, what):
         if not 1 <= k <= KNN_MAX_K:
             raise ValueError(
@@ -103,8 +103,7 @@ def check_mapping_config(cfg: LoamConfig) -> None:
         if not 1 <= k <= C <= KSELECT_MAX_C:
             raise ValueError(
                 f"{what}: the cell-bucket map's selection (csrc/kselect.cu) "
-                f"needs 1 <= k <= C <= {KSELECT_MAX_C}, one row of C "
-                "candidates in a block's 227 KB of shared memory")
+                f"needs 1 <= k <= C <= {KSELECT_MAX_C}")
 
     if _hybrid(cfg):
         exact(max(cfg.map_exact_cache_k, cfg.map_knn),

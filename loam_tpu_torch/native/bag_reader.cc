@@ -39,8 +39,16 @@ namespace {
 typedef int (*bz2_decompress_fn)(char* dest, unsigned* destLen,
                                  char* source, unsigned sourceLen,
                                  int small, int verbosity);
-typedef int (*lz4_decompress_fn)(const char* src, char* dst,
-                                 int compressedSize, int dstCapacity);
+// rosbag's lz4 chunks are LZ4 *frames* (roslz4; magic 0x184D2204), so
+// the frame decoder of liblz4 (LZ4F_*), not the raw block decoder
+struct Lz4Frame {
+  size_t (*create)(void** dctx, unsigned version);
+  size_t (*free_ctx)(void* dctx);
+  size_t (*decompress)(void* dctx, void* dst, size_t* dst_size,
+                       const void* src, size_t* src_size, const void* opts);
+  unsigned (*is_error)(size_t code);
+  const char* (*error_name)(size_t code);
+};
 
 bz2_decompress_fn get_bz2() {
   static bz2_decompress_fn fn = [] {
@@ -54,15 +62,63 @@ bz2_decompress_fn get_bz2() {
   return fn;
 }
 
-lz4_decompress_fn get_lz4() {
-  static lz4_decompress_fn fn = [] {
+const Lz4Frame* get_lz4() {
+  static const Lz4Frame* fn = []() -> const Lz4Frame* {
     void* h = dlopen("liblz4.so.1", RTLD_NOW | RTLD_GLOBAL);
     if (!h) h = dlopen("liblz4.so", RTLD_NOW | RTLD_GLOBAL);
-    return h ? reinterpret_cast<lz4_decompress_fn>(
-                   dlsym(h, "LZ4_decompress_safe"))
-             : nullptr;
+    if (!h) return nullptr;
+    static Lz4Frame f;
+    f.create = reinterpret_cast<decltype(f.create)>(
+        dlsym(h, "LZ4F_createDecompressionContext"));
+    f.free_ctx = reinterpret_cast<decltype(f.free_ctx)>(
+        dlsym(h, "LZ4F_freeDecompressionContext"));
+    f.decompress = reinterpret_cast<decltype(f.decompress)>(
+        dlsym(h, "LZ4F_decompress"));
+    f.is_error = reinterpret_cast<decltype(f.is_error)>(
+        dlsym(h, "LZ4F_isError"));
+    f.error_name = reinterpret_cast<decltype(f.error_name)>(
+        dlsym(h, "LZ4F_getErrorName"));
+    return f.create && f.free_ctx && f.decompress && f.is_error &&
+                   f.error_name
+               ? &f
+               : nullptr;
   }();
   return fn;
+}
+
+// One chunk's LZ4 frame(s) into out (sized to the chunk header's size);
+// false with the LZ4F error's name in *error.
+bool lz4_frame_decompress(const Lz4Frame& lz4, const uint8_t* src,
+                          size_t src_len, std::vector<uint8_t>* out,
+                          std::string* error) {
+  void* dctx = nullptr;
+  size_t rc = lz4.create(&dctx, 100);  // LZ4F_VERSION
+  if (lz4.is_error(rc)) {
+    *error = std::string("lz4 decompress failed: ") + lz4.error_name(rc);
+    return false;
+  }
+  size_t in = 0, done = 0;
+  rc = 0;
+  while (in < src_len) {
+    size_t n_src = src_len - in, n_dst = out->size() - done;
+    rc = lz4.decompress(dctx, out->data() + done, &n_dst, src + in, &n_src,
+                        nullptr);
+    if (lz4.is_error(rc)) break;
+    in += n_src;
+    done += n_dst;
+    if (n_src == 0 && n_dst == 0) break;  // output full: no progress
+  }
+  lz4.free_ctx(dctx);
+  if (lz4.is_error(rc)) {
+    *error = std::string("lz4 decompress failed: ") + lz4.error_name(rc);
+    return false;
+  }
+  if (rc != 0 || in < src_len) {
+    *error = "lz4 decompress failed: frame truncated or larger than size";
+    return false;
+  }
+  out->resize(done);
+  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -202,19 +258,14 @@ bool handle_record(Bag* bag, size_t buf_idx, const Header& h,
         }
         out.resize(dlen);
       } else if (comp == "lz4") {
-        lz4_decompress_fn lz4 = get_lz4();
+        const Lz4Frame* lz4 = get_lz4();
         if (!lz4) {
           bag->error = "liblz4 unavailable";
           return false;
         }
-        int rc = lz4(reinterpret_cast<const char*>(buf.data() + data_off),
-                     reinterpret_cast<char*>(out.data()),
-                     static_cast<int>(data_len), static_cast<int>(usize));
-        if (rc < 0) {
-          bag->error = "lz4 decompress failed";
+        if (!lz4_frame_decompress(*lz4, buf.data() + data_off, data_len,
+                                  &out, &bag->error))
           return false;
-        }
-        out.resize(rc);
       } else {
         bag->error = "unknown compression: " + comp;
         return false;

@@ -2,10 +2,9 @@
 and plain version (counterpart of loam_tpu/ops/pallas/kselect.py).
 
 Contract (kernel and plain version): cand (Q, C, 3) float32, valid
-(Q, C) bool, q (Q, 3) float32, 1 <= k <= C <= MAX_C (one query's row
-of candidates, 13 bytes each, in a block's 227 KB of shared memory).
-Returns pts (Q, k, 3) and d2 (Q, k), nearest first.  Distances are
-(c - q)^2 in the IEEE order round(round(dx^2 + dy^2) + dz^2), 1e30 for
+(Q, C) bool, q (Q, 3) float32, 1 <= k <= C <= MAX_C.  Returns pts
+(Q, k, 3) and d2 (Q, k), nearest first.  Distances are (c - q)^2 in
+the IEEE order round(round(dx^2 + dy^2) + dz^2), 1e30 for
 an invalid candidate.  The picks are k distinct candidate indices in
 ascending (distance, index) order, the rule of a stable top-k: equal
 distances go to the lower index, duplicated candidates stay separate
@@ -24,28 +23,17 @@ import torch
 from ..nn import BIG
 from . import _build
 
-SMEM_MAX = 232448    # dynamic shared memory one block may ask for
-
-
-def row_bytes(C: int) -> int:
-    """Shared memory a staged row of C candidates takes (csrc/kselect.cu
-    warp_smem_bytes): the coordinates and the validity bytes padded to
-    16."""
-    return 12 * C + -(-C // 16) * 16
-
-
-# the most candidates a row of csrc/kselect.cu (kselect_max_c); here for
-# the configuration check, which runs without the library
-MAX_C = max(C for C in range(SMEM_MAX // 12 + 1) if row_bytes(C) <= SMEM_MAX)
+# the most candidates a row of csrc/kselect.cu (kselect_max_c; C = 27 x
+# search_bucket_cap up to a cap of 662); here for the configuration
+# check, which runs without the library
+MAX_C = 17880
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
 
 
 def _check_sizes(C: int, k: int) -> None:
     if not 1 <= k <= C <= MAX_C:
         raise ValueError(
-            f"knn_select: k={k}, C={C} outside 1 <= k <= C <= {MAX_C} (one "
-            f"row of C candidates in a block's {SMEM_MAX} bytes of shared "
-            "memory)")
+            f"knn_select: k={k}, C={C} outside 1 <= k <= C <= {MAX_C}")
 
 
 def masked_sq_dists(cand, valid, q):

@@ -239,9 +239,8 @@ class LiveServer:
         with self._surround_lock:
             if now - self._registered_t < self._surround_every:
                 return self._registered_cache
-            self._registered_t = now
         cloud = self._engine.latest_registered()
-        if cloud is None:
+        if cloud is None:   # not stamped: the next poll looks again
             return self._registered_cache
         xyz = cloud.xyz.cpu().numpy()[cloud.mask.cpu().numpy()]
         if xyz.shape[0] > self._registered_cap:
@@ -250,6 +249,7 @@ class LiveServer:
         pts = np.round(xyz.astype(np.float64), 3).tolist()
         with self._surround_lock:
             self._registered_cache = pts
+            self._registered_t = now
         return pts
 
     def _state(self) -> dict:
@@ -274,7 +274,8 @@ class LiveServer:
             "stats": {
                 "odom_frames": st.odom_frames,
                 "map_frames": st.map_frames,
-                "dropped": getattr(st, "dropped", 0),
+                "dropped": sum(q["dropped"]
+                               for q in st.queue_stats.values()),
             },
         }
 

@@ -369,14 +369,19 @@ def test_select_walk_kernel_matches_plain(cuda, B, R, W, corner_k, flat_k):
                                         (1000, 8, 5, 0.5), (37, 130, 3, 0.1),
                                         (5, 1024, 32, 0.9),
                                         (300, 1296, 40, 0.6),
-                                        (300, 2160, 64, 0.6)])
+                                        (300, 2160, 64, 0.6),
+                                        (1000, 32, 5, 0.6), (1000, 33, 5, 0.6),
+                                        (1000, 64, 5, 0.6), (1000, 65, 5, 0.6),
+                                        (300, 1296, 64, 0.6),
+                                        (300, 1296, 65, 0.6)])
 def test_kselect_kernel_matches_plain(cuda, Q, C, k, frac):
     """Coordinates and squared distances equal to the plain version, with
     duplicated candidates, exact ties (a coarse lattice), rows with fewer
     than k valid candidates and rows with none."""
     rng = np.random.default_rng(C + k)
-    half = rng.integers(-3, 4, size=(Q, C // 2, 3)).astype(np.float32) * 0.25
-    cand = np.concatenate([half, half], 1)
+    half = rng.integers(-3, 4, size=(Q, (C + 1) // 2, 3)).astype(
+        np.float32) * 0.25
+    cand = np.concatenate([half, half], 1)[:, :C]
     valid = rng.uniform(size=(Q, C)) < frac
     valid[::5, k - 1:] = False
     valid[::11] = False
@@ -391,17 +396,23 @@ def test_kselect_kernel_matches_plain(cuda, Q, C, k, frac):
     assert (d2[::11] == 1e30).all() and (d2 < 1e29).any()
 
 
-# C, k, Q: the re-rank shapes (eight lanes a query), their edges (C = 1,
-# 30, 32), the warp kernel with and without 16-byte aligned rows (33, 866,
-# 1298), more than 32 candidates a lane and k past 32 (1296 and 2160; 8
-# warps a block), its limit (C = 17880, one warp a block), Q that leaves
-# the last group or block ragged, and Q large enough that a warp walks
-# several queries
+# C, k, Q: the re-rank shapes (a group of eight lanes a query), their
+# edges (C = 1, 30, 32), the group's rows of five to eight candidates a
+# lane (33, 40, 64, and k = C there), the warp kernel past 64 (65; two
+# keys a lane up to k = 48, eight past it: k = 1, 48, 49, 64, 65 and C
+# at C = 1296, several rounds at k = C), rows with and without 16-byte
+# alignment (866, 1298), the limit (C = 17880, three warps a block), Q
+# that leaves the last group or block ragged, and Q large enough that a
+# warp walks several queries
 KSELECT_LATTICE = [(8, 5, 37), (24, 5, 37), (24, 24, 1001), (1, 1, 9),
                    (30, 7, 37), (32, 32, 131), (33, 5, 37), (36, 32, 6000),
+                   (40, 5, 1001), (48, 48, 37), (49, 5, 37), (64, 5, 37),
+                   (64, 64, 131), (65, 5, 37), (65, 65, 37),
                    (864, 24, 37), (866, 24, 150), (1024, 32, 3000),
                    (864, 1, 2048), (1296, 40, 300), (1298, 40, 300),
-                   (2160, 64, 200), (17880, 100, 20)]
+                   (1296, 1, 300), (1296, 48, 300), (1296, 49, 300),
+                   (1296, 64, 300), (1296, 65, 300), (1296, 1296, 20),
+                   (2160, 64, 200), (17880, 40, 20), (17880, 100, 20)]
 
 
 @pytest.mark.parametrize("C,k,Q", KSELECT_LATTICE)
@@ -423,12 +434,14 @@ def test_kselect_kernel_lattice_matches_plain(cuda, C, k, Q):
 
 
 @pytest.mark.parametrize("Q,C,k", [(2048, 864, 24), (8192, 24, 5),
-                                   (8192, 8, 5)])
+                                   (8192, 8, 5), (2048, 1296, 40),
+                                   (8192, 40, 5), (8192, 64, 5),
+                                   (2048, 1296, 100)])
 def test_kselect_kernel_replay_shapes(cuda, Q, C, k):
     """The gather chunk and the two re-rank shapes of the cached mapping
-    modes on continuous clouds, and the gather chunk once more from a
-    base pointer that is not 16-byte aligned (plain loads in place of
-    asynchronous copies)."""
+    modes and of the dense cell on continuous clouds, and each once more
+    from a base pointer that is not 16-byte aligned (the warp kernel's
+    scalar loads in place of 16-byte ones)."""
     rng = np.random.default_rng(C)
     q_np = rng.uniform(-30, 30, (Q, 3)).astype(np.float32)
     cand_np = (q_np[:, None] + rng.normal(0, 0.8, (Q, C, 3))).astype(

@@ -51,6 +51,10 @@ CASES = {
     "few_valid": (lambda: _case(16, 32, 0, 0.1), 8, 16),
     "unaligned": (lambda: _case(37, 130, 3, 0.7), 3, 32),
     "duplicates_and_ties": (lambda: _ties_case(48, 64, 5), 5, 16),
+    # the dense cell's shapes (search_bucket_cap 48, knn_candidates 40):
+    # its gather chunk (27 cells of 48) and its re-rank, few queries
+    "dense_gather": (lambda: _case(16, 1296, 7, 0.6), 40, 16),
+    "dense_rerank": (lambda: _case(64, 40, 8, 0.7), 5, 32),
 }
 
 
@@ -118,10 +122,11 @@ def test_knn_select_cpu_runs_plain_and_limits_raise():
     with pytest.raises(ValueError, match="C=17881"):
         TK.knn_select(torch.zeros(1, 17881, 3),
                       torch.ones(1, 17881, dtype=torch.bool),
-                      torch.zeros(1, 3), 5)          # a row past 227 KB
+                      torch.zeros(1, 3), 5)          # past MAX_C
 
 
-@pytest.mark.parametrize("C,k", [(8, 5), (24, 5), (33, 5), (864, 24)])
+@pytest.mark.parametrize("C,k", [(8, 5), (24, 5), (33, 5), (40, 5), (64, 5),
+                                 (65, 5), (864, 24), (1296, 40)])
 def test_knn_select_plain_lattice_matches_stable_argsort(C, k):
     """Lattice candidates (exact ties in every row) at the candidate
     counts the kernel treats differently: the picks are the first k of a

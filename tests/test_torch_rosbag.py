@@ -1,10 +1,11 @@
 """The port's rosbag reader (loam_tpu_torch/io/rosbag.py over its own
 copy of the native sources) against loam_tpu.io.rosbag, on bags written
 by the tests' pure-Python writer (torch_parity, a copy of
-test_rosbag's, held byte-equal to it here): uncompressed and bz2
+test_rosbag's, held byte-equal to it here): uncompressed, bz2 and lz4
 chunks, clouds with and without ring/time fields, an IMU stream."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -19,25 +20,58 @@ from loam_tpu_torch.io import rosbag as TRBAG
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _code_lines(path):
-    """The lines of a source, comment lines blanked."""
+def _lines(path):
     with open(path, "rb") as f:
-        return [b"//" if ln.lstrip().startswith(b"//") else ln
-                for ln in f.read().splitlines()]
+        return f.read().splitlines()
+
+
+def _code(lines):
+    """The lines of a source, comment lines blanked."""
+    return [b"//" if ln.lstrip().startswith(b"//") else ln for ln in lines]
+
+
+# The port's one departure from loam_tpu/native: rosbag writes its lz4
+# chunks as LZ4 frames, which the reference's raw block decoder
+# (LZ4_decompress_safe) cannot read; the port's bag_reader.cc decodes
+# them with liblz4's frame decoder (LZ4F_decompress).  Each span runs
+# from the first line matching its start to the line before its end, in
+# both files.
+LZ4_SPANS = ((rb"lz4", rb"get_bz2\(\) \{"),
+             (rb"get_lz4\(\) \{", rb"^// -{10}"),
+             (rb'comp == "lz4"', rb"^      \} else \{"))
+
+
+def _split_lz4(lines):
+    """(the lines outside LZ4_SPANS, the lines inside them)."""
+    out, spans, i = [], [], 0
+    for start, end in LZ4_SPANS:
+        a = next(j for j in range(i, len(lines))
+                 if re.search(start, lines[j], re.I))
+        b = next(j for j in range(a + 1, len(lines))
+                 if re.search(end, lines[j]))
+        out += lines[i:a]
+        spans += lines[a:b]
+        i = b
+    return out + lines[i:], b"\n".join(spans)
 
 
 @pytest.mark.parametrize("name", ["bag_reader.cc", "runtime.cc",
                                   "Makefile"])
 def test_native_sources_are_loam_tpus(name):
-    """The port's native sources are loam_tpu/native's, line for line;
-    of the comments only one line of bag_reader.cc differs (it named a
-    local checkout of the reference), the rest are equal too."""
-    port = os.path.join(ROOT, "loam_tpu_torch", "native", name)
-    jax_ = os.path.join(ROOT, "loam_tpu", "native", name)
-    assert _code_lines(port) == _code_lines(jax_)
-    with open(port, "rb") as a, open(jax_, "rb") as b:
-        differ = sum(x != y for x, y in zip(a.read().splitlines(),
-                                            b.read().splitlines()))
+    """The port's native sources are loam_tpu/native's, line for line,
+    but for bag_reader.cc's lz4 decoder (LZ4_SPANS); of the comments
+    outside it only one line of bag_reader.cc differs (it named a local
+    checkout of the reference), the rest are equal too."""
+    port = _lines(os.path.join(ROOT, "loam_tpu_torch", "native", name))
+    jax_ = _lines(os.path.join(ROOT, "loam_tpu", "native", name))
+    if name == "bag_reader.cc":
+        port, port_lz4 = _split_lz4(port)
+        jax_, jax_lz4 = _split_lz4(jax_)
+        assert b"LZ4_decompress_safe" in jax_lz4
+        assert b"LZ4_decompress_safe" not in port_lz4
+        assert b'"LZ4F_decompress"' in port_lz4
+    assert _code(port) == _code(jax_)
+    differ = sum(x != y for x, y in zip(port, jax_))
     assert differ == (1 if name == "bag_reader.cc" else 0)
 
 
@@ -82,18 +116,30 @@ def data():
     return clouds, rings, rels, imu_t, quat, acc
 
 
-@pytest.mark.parametrize("compression", [b"none", b"bz2"])
+@pytest.mark.parametrize("compression", [b"none", b"bz2", b"lz4"])
 @pytest.mark.parametrize("with_ring", [True, False])
 def test_reader_matches_loam_tpu(tmp_path, data, compression, with_ring):
+    """The port reads what loam_tpu reads from the same bag.  loam_tpu
+    cannot read an lz4 chunk (LZ4_SPANS): there it reads the same bag
+    uncompressed, the port the bag with its chunk as an LZ4 frame."""
+    lz4 = compression == b"lz4"
+    if lz4:
+        try:
+            TPB.lz4_frame(b"")
+        except OSError:
+            pytest.skip("liblz4.so.1 cannot be loaded")
     path = str(tmp_path / "t.bag")
     TPB.write_bag(path, _messages("port", data, with_ring), compression)
     ref = str(tmp_path / "ref.bag")
     TRB.write_bag(ref, _messages("test_rosbag", data, with_ring),
-                  compression)
+                  b"none" if lz4 else compression)
     with open(path, "rb") as a, open(ref, "rb") as b:
-        assert a.read() == b.read()     # the writer is test_rosbag's
+        if lz4:       # an LZ4 frame's magic number, little-endian
+            assert b"\x04\x22\x4d\x18" in a.read()
+        else:         # the writer is test_rosbag's
+            assert a.read() == b.read()
 
-    with TRBAG.BagReader(path) as tb, JRB.BagReader(path) as jb:
+    with TRBAG.BagReader(path) as tb, JRB.BagReader(ref) as jb:
         assert tb.topics() == jb.topics()
         assert tb.count("/velodyne_points") == 3
         for k in range(3):
@@ -113,12 +159,12 @@ def test_reader_matches_loam_tpu(tmp_path, data, compression, with_ring):
 
     for kw in (dict(), dict(max_points=64, skip=1)):
         for g, w in zip(TRBAG.load_sweeps(path, **kw),
-                        JRB.load_sweeps(path, **kw)):
+                        JRB.load_sweeps(ref, **kw)):
             np.testing.assert_array_equal(g, w)
     raw, mask, _ = TRBAG.load_sweeps(path, max_points=64)
     assert raw.shape == (3, 64, 3) and mask.sum() == 60 + 44 + 64
     for g, w in zip(TRBAG.load_imu_stream(path),
-                    JRB.load_imu_stream(path)):
+                    JRB.load_imu_stream(ref)):
         np.testing.assert_array_equal(g, w)
 
 

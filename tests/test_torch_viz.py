@@ -156,3 +156,67 @@ def test_live_server_serves_state_and_page():
     finally:
         live.stop()
         eng.stop()
+
+
+class _StubEngine:
+    """What LiveServer reads of a StreamingEngine, with set stats and a
+    registered cloud that a test sets."""
+
+    def __init__(self, stats):
+        self._stats = stats
+        self.registered = None
+
+    def trajectory(self):
+        return np.zeros((2, 6))
+
+    def stats(self):
+        return self._stats
+
+    def latest_pose(self):
+        return np.zeros(6)
+
+    latest_aft = latest_odom = latest_pose
+
+    def map_state_snapshot(self):
+        return None, None
+
+    def latest_registered(self):
+        return self.registered
+
+
+def test_live_state_reports_the_queues_drops():
+    """"dropped" is the sum of the engine's per-queue drops (EngineStats
+    has no field of that name; its queue_stats has one a queue)."""
+    from loam_tpu_torch.runtime.streaming import EngineStats
+
+    queues = {name: dict(pushed=9, popped=9 - d, dropped=d, depth=0)
+              for name, d in (("sweeps", 3), ("features", 4), ("map", 0))}
+    stats = EngineStats(frames_in=9, odom_frames=5, map_frames=2,
+                        queue_stats=queues)
+    live = LiveServer(_StubEngine(stats), port=0)
+    try:
+        s = live._state()
+    finally:
+        live._httpd.server_close()
+    assert s["stats"] == {"odom_frames": 5, "map_frames": 2, "dropped": 7}
+
+
+def test_live_registered_waits_for_a_cloud_before_rate_limiting():
+    """A poll that finds no registered cloud yet does not start the rate
+    limit: the next poll, well inside surround_every, fetches the cloud
+    that has arrived; after that the cache holds until the limit."""
+    from loam_tpu_torch.runtime.streaming import EngineStats
+
+    eng = _StubEngine(EngineStats())
+    live = LiveServer(eng, port=0, surround_every=3600.0)
+    try:
+        assert live._registered() == []
+        eng.registered = dataclasses.make_dataclass(
+            "Cloud", ["xyz", "mask"])(torch.tensor([[1.0, 2.0, 3.0],
+                                                    [4.0, 5.0, 6.0]]),
+                                      torch.tensor([True, False]))
+        assert live._registered() == [[1.0, 2.0, 3.0]]
+        eng.registered = None
+        assert live._registered() == [[1.0, 2.0, 3.0]]
+    finally:
+        live._httpd.server_close()

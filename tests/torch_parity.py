@@ -5,6 +5,7 @@ imports neither jax nor loam_tpu (parity_cfg does, when called)."""
 from __future__ import annotations
 
 import bz2
+import ctypes
 import dataclasses
 import struct
 
@@ -71,7 +72,7 @@ WIDE_K = (
 # ValueError that names the limit: (test id, config changes, pattern).
 # The cell path's re-rank at k > C, which loam_tpu's lax.top_k refuses
 # too, and the limits of the kernels: rings of more than 8192 points,
-# an exact k past the widest warp queue, C past one staged row
+# an exact k past the widest warp queue, C past kselect's MAX_C
 REFUSED = (
     ("cells_rerank", dict(map_exact_knn=False, knn_candidates=4),
      r"map_knn=5 from C=knn_candidates=4 .*1 <= k <= C <= 17880"),
@@ -447,12 +448,33 @@ def message(conn_id, stamp, payload: bytes) -> bytes:
     )
 
 
+def lz4_frame(data: bytes) -> bytes:
+    """data as one LZ4 frame (what rosbag's roslz4 writes), by the system's
+    liblz4.so.1 over ctypes; OSError where that library is missing."""
+    lib = ctypes.CDLL("liblz4.so.1")
+    lib.LZ4F_compressFrameBound.restype = ctypes.c_size_t
+    lib.LZ4F_compressFrameBound.argtypes = (ctypes.c_size_t, ctypes.c_void_p)
+    lib.LZ4F_compressFrame.restype = ctypes.c_size_t
+    lib.LZ4F_compressFrame.argtypes = (ctypes.c_void_p, ctypes.c_size_t,
+                                       ctypes.c_char_p, ctypes.c_size_t,
+                                       ctypes.c_void_p)
+    lib.LZ4F_isError.argtypes = (ctypes.c_size_t,)
+    dst = ctypes.create_string_buffer(
+        lib.LZ4F_compressFrameBound(len(data), None))
+    n = lib.LZ4F_compressFrame(dst, len(dst), data, len(data), None)
+    if lib.LZ4F_isError(n):
+        raise RuntimeError("LZ4F_compressFrame failed")
+    return dst.raw[:n]
+
+
 def write_bag(path, messages, compression=b"none"):
     """messages: list of (conn_records, msg_records) flattened bytes that
-    go inside one chunk."""
+    go inside one chunk (compression none, bz2 or lz4: an LZ4 frame)."""
     chunk_body = b"".join(messages)
     if compression == b"bz2":
         comp = bz2.compress(chunk_body)
+    elif compression == b"lz4":
+        comp = lz4_frame(chunk_body)
     else:
         comp = chunk_body
     with open(path, "wb") as f:
