@@ -2547,7 +2547,7 @@ def main() -> int:
     each = ", ".join(f"{n} {s:.1f} s" for n, s in _build.build_all.seconds.items())
     print(f"built {len(_build.KERNEL_SOURCES)} kernel libraries in {secs:.1f} s from "
           f"{Path(_build.CSRC).parent} (one nvcc each, all started together; "
-          f"each done by: {each})", flush=True)
+          f"each nvcc ended at: {each})", flush=True)
 
     raw, msk = make_sweeps()
     imu = imu_inputs(dev)

@@ -48,7 +48,9 @@
 // Either way the picks are k distinct indices in ascending (distance,
 // index) order, invalid candidates (1e30) after every valid one: the
 // rule of a stable top-k, which the plain PyTorch version follows to the
-// bit.  Distances are (c - q)^2 in the order round(round(dx^2 + dy^2) +
+// bit; once only +inf distances are left (they overflowed), each further
+// pick is candidate 0 at +inf, as the plain version's argmins give it.
+// Distances are (c - q)^2 in the order round(round(dx^2 + dy^2) +
 // dz^2) (exact_dist.cuh), no FMA contraction, no tensor cores.
 
 #include <cuda_runtime.h>
@@ -116,7 +118,10 @@ __global__ void __launch_bounds__(kGroupThreads)
         mr = r;
       }
     }
-    const int own = m < CUDART_INF_F ? sub + kGroup * mr : kNoIndex;
+    // a lane left with +inf alone offers (+inf, its candidate): with
+    // only +inf left (distances that overflowed), lane 0's candidate 0
+    // wins, as the plain version's argmin takes it
+    const int own = sub + kGroup * mr;
     int mi = own;
 #pragma unroll
     for (int off = kGroup / 2; off > 0; off >>= 1) {
@@ -457,10 +462,20 @@ __global__ void __launch_bounds__(kWarps * 32)
         }
       }
     }
-    // at least L, or every remaining key (none past a NaN distance,
-    // which no lane ever holds: stop rather than spin)
+    // at least L, or every remaining key
     const int n = held < need ? held : need;
-    if (n == 0) break;
+    if (n == 0) {
+      // no lane holds a key: every remaining distance is +inf (it
+      // overflowed), and the plain version's argmin takes candidate 0
+      // for each pick left
+      for (int e = s + lane; e < k; e += 32) {
+        d2_out[o + e] = CUDART_INF_F;
+        pts_out[3 * (o + e)] = cq[0];
+        pts_out[3 * (o + e) + 1] = cq[1];
+        pts_out[3 * (o + e) + 2] = cq[2];
+      }
+      break;
+    }
     emit<L>(a, n, s, s + n < k, lane, cq, o, dist, pts_out, d2_out);
     s += n;
     __syncwarp();

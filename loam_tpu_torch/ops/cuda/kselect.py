@@ -9,7 +9,11 @@ an invalid candidate.  The picks are k distinct candidate indices in
 ascending (distance, index) order, the rule of a stable top-k: equal
 distances go to the lower index, duplicated candidates stay separate
 entries, and with fewer than k valid candidates the tail holds the
-lowest-index invalid ones (d2 = 1e30; callers gate on d2).
+lowest-index invalid ones (d2 = 1e30; callers gate on d2).  A
+distance that overflows is +inf, the value a pick is retired to: once
+only +inf distances are left, every further pick is candidate 0 at
++inf, as repeated argmins give it.  NaN coordinates of a query or of a
+valid candidate are outside the contract.
 ``knn_select.launches`` counts kernel launches, ``knn_select.by_shape``
 them by (C, k).
 """

@@ -44,13 +44,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 21
 # (Q, C, k, lattice): chip_smoke.py's kselect rows, then kselect_dense's,
-# then the k = 24 and 40 of each gather width
+# then the k = 24 and 40 of each gather width, then k = 64 (past the
+# warp kernel's two keys a lane) at the dense width and at 27 cells of 80
 SHAPES = ((8200, 24, 5, True), (1024, 864, 24, True), (8192, 8, 5, False),
           (8 * 8192, 8, 5, False), (8192, 24, 5, False),
           (2048, 864, 1, False), (2048, 864, 24, False),
           (1024, 1296, 40, True), (8192, 40, 5, False),
           (2048, 1296, 40, False), (8192, 64, 5, False),
-          (2048, 864, 40, False), (2048, 1296, 24, False))
+          (2048, 864, 40, False), (2048, 1296, 24, False),
+          (2048, 1296, 64, False), (200, 2160, 64, False))
 
 
 def card_line() -> str:

@@ -462,6 +462,36 @@ def test_kselect_kernel_replay_shapes(cuda, Q, C, k):
     assert (want[1][:, 0] < 1e29).sum() > Q // 2
 
 
+@pytest.mark.parametrize("C,k", [(40, 40), (40, 39), (1296, 1296),
+                                 (1296, 1295), (1296, 40)])
+def test_kselect_kernel_overflowed_distance(cuda, C, k):
+    """Valid candidates at 1e20 (a squared distance that overflows to
+    +inf), one a row, every valid one in some rows and every candidate
+    in others: once only +inf
+    distances are left, every pick is candidate 0 at +inf, as in the
+    plain version, on the group kernel and on the warp kernel."""
+    Q = 64
+    rng = np.random.default_rng(C + k)
+    q_np = rng.uniform(-30, 30, (Q, 3)).astype(np.float32)
+    cand_np = (q_np[:, None] + rng.normal(0, 0.8, (Q, C, 3))).astype(
+        np.float32)
+    valid_np = rng.uniform(size=(Q, C)) < 0.6
+    valid_np[:, C // 3] = True
+    cand_np[:, C // 3] = 1e20
+    cand_np[::4][valid_np[::4]] = 1e20
+    valid_np[2::16] = True     # every candidate valid and overflowed
+    cand_np[2::16] = 1e20
+    cand, valid, q = (torch.tensor(a, device=cuda)
+                      for a in (cand_np, valid_np, q_np))
+    want = KS.knn_select_plain(cand, valid, q, k)
+    got = KS.knn_select(cand, valid, q, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isinf(want[1][2::16]).all()
+    if k == C:
+        assert torch.isinf(want[1][:, -1]).all()
+
+
 def test_replay_modes_agree_with_cpu(cuda):
     """Two frames of each mapping mode on the card (kernels) against the
     same replay on the CPU (plain versions): same cadence, poses within

@@ -35,8 +35,10 @@ def _code(lines):
 # (LZ4_decompress_safe) cannot read; the port's bag_reader.cc decodes
 # them with liblz4's frame decoder (LZ4F_decompress).  Each span runs
 # from the first line matching its start to the line before its end, in
-# both files.
-LZ4_SPANS = ((rb"lz4", rb"get_bz2\(\) \{"),
+# both files; the first starts at the lz4 binding itself (the
+# reference's typedef, the port's comment above its LZ4F table).
+LZ4_SPANS = ((rb"^(typedef int \(\*lz4_decompress_fn\)|// rosbag's lz4)",
+              rb"get_bz2\(\) \{"),
              (rb"get_lz4\(\) \{", rb"^// -{10}"),
              (rb'comp == "lz4"', rb"^      \} else \{"))
 
@@ -46,7 +48,7 @@ def _split_lz4(lines):
     out, spans, i = [], [], 0
     for start, end in LZ4_SPANS:
         a = next(j for j in range(i, len(lines))
-                 if re.search(start, lines[j], re.I))
+                 if re.search(start, lines[j]))
         b = next(j for j in range(a + 1, len(lines))
                  if re.search(end, lines[j]))
         out += lines[i:a]
@@ -67,6 +69,8 @@ def test_native_sources_are_loam_tpus(name):
     if name == "bag_reader.cc":
         port, port_lz4 = _split_lz4(port)
         jax_, jax_lz4 = _split_lz4(jax_)
+        for spans in (port_lz4, jax_lz4):    # the spans hold lz4 alone
+            assert b"bz2" not in spans and b"#include" not in spans
         assert b"LZ4_decompress_safe" in jax_lz4
         assert b"LZ4_decompress_safe" not in port_lz4
         assert b'"LZ4F_decompress"' in port_lz4
