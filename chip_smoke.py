@@ -137,16 +137,31 @@ Phases, each of which raises (non-zero exit) on failure:
      of W=32 at k=16; C=1296, k=40);
      then (d) `python -m loam_tpu_torch --synthetic 8 --ring-width 1800
      --golden-compare` as a subprocess, its verdict under 5 cm.  Prints
-     what the feature caps cut, the local map's overflow, frames/s.
+     what the feature caps cut, the local map's overflow, frames/s;
+ 13. the VLP-16's other rotation rates, each point's sweep time decoded
+     by scan_period: (a) 300 RPM in dual-return mode, the default cell's
+     recipe at scan_period 0.2 s (0.18 m and 0.02 rad a sweep), 13
+     sweeps of 7200 azimuths (115,200 points) in rings of 7200, in phase
+     12's three mapping modes, each within 5 cm integrated ATE of the
+     NumPy oracle (its own process) and each launching the walk's 8
+     words a lane; (b) 1200 RPM, the same recipe at 0.05 s, 26 sweeps of
+     900 azimuths, strict, within 5 cm of its oracle; (c) the golden IMU
+     scenario at 0.2 s (20 sweeps over its 4 s), held to the ground
+     truth from the first sweep's end (< 0.30 m, and nearer than a no-IMU
+     rerun) and moved by its IMU (> 1 mm from that rerun);
+     (d) the streaming engine paced over (b)'s sweeps on its own clock
+     (scan_period a sweep), equal to (b)'s replay by the engine's rule.
+     Prints the feature caps' and the map's overflow, frames/s.
 The kernel rows carry the batch's shapes too (B=8 scenarios), each
 compared bit for bit; odom_corr_untruncated is odom_corr's walk without
 the upward-scan truncation, at the corner and surf shapes, its launches
 those of phase 11's figure-8 replays; knn_topk_dyn_k16, select_walk_wide
 and kselect_dense are the windowed k-NN, the walk and kselect at the
 shapes of phase 12 and at other k and widths, their launches phase
-12's.  The last lines are the smoke's
-seconds, the kernels JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}.
+12's (select_walk_wide's also phase 13 a's, at its own shape, and the
+5 Hz hybrid and cells replays' in knn_topk_dyn_k16 and kselect_dense).
+The last lines are the smoke's seconds, the kernels JSON, the card's
+name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -325,6 +340,23 @@ DENSE_MODES = {
 }
 DENSE_CLI_F = 8
 DENSE_CLI_WIDTH = 1800       # 900 azimuths in rings of 56.25 words
+# the other rotation rates (phase 13): the default cell's recipe at
+# 300 RPM in dual-return mode (7,200 returns a ring, the largest sweep a
+# VLP-16 makes) and at 1200 RPM; tables 2^17 / 2^18
+RATE5_T = 0.2                # s, scan_period at 300 RPM
+RATE5_F = 13
+RATE5_AZIMUTH = 7200
+RATE5_WORDS = 8              # the walk's words a lane at rings of 7200
+RATE5_MODES = {
+    name.replace("dense", "5 Hz"):
+        (over, required, forbidden, {**inst, "select_walk": [RATE5_WORDS]})
+    for name, (over, required, forbidden, inst) in DENSE_MODES.items()}
+RATE20_T = 0.05              # s, scan_period at 1200 RPM
+RATE20_F = 26
+RATE20_AZIMUTH = 900
+RATE20_MODES = {"20 Hz": ({}, ("knn_topk", "knn_topk_dyn", "odom_corr",
+                               "select_walk"), ("knn_select",), {})}
+RATE_IMU_F = 20              # the golden IMU scenario's 4 s at 0.2 s
 POSE_NAMES = ("pose_odom", "pose_aft", "pose_integrated")
 KERNELS = ("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk",
            "knn_select")
@@ -351,13 +383,14 @@ def golden_config(exact: bool):
     return dataclasses.replace(LoamConfig(), **over)
 
 
-def imu_config():
+def imu_config(scan_period: float = 0.1):
     """The golden IMU configuration: rings of 1024, the cell-bucket map."""
     from loam_tpu_torch.config import LoamConfig
 
     return dataclasses.replace(LoamConfig(), ring_width=1024,
                                corner_table_size=1 << 15,
-                               surf_table_size=1 << 17, map_exact_knn=False)
+                               surf_table_size=1 << 17, map_exact_knn=False,
+                               scan_period=scan_period)
 
 
 def imu_inputs(dev):
@@ -448,11 +481,15 @@ def _compare(name, kernel_out, plain_out):
     return err
 
 
-def make_sweeps(frames: int = FRAMES, n_azimuth: int = N_AZIMUTH):
+def make_sweeps(frames: int = FRAMES, n_azimuth: int = N_AZIMUTH,
+                scan_period: float = 0.1):
+    """The default cell's recipe (NumPy): seed 21, straight at 0.9 m/s
+    and 0.1 rad/s, a sweep every scan_period seconds."""
     from loam_tpu_torch.io import synth
 
     world = synth.make_world(seed=SEED)
-    poses = synth.straight_trajectory(frames, speed=0.9, yaw_rate=0.1)
+    poses = synth.straight_trajectory(frames, speed=0.9, yaw_rate=0.1,
+                                      scan_period=scan_period)
     poses = np.vstack([poses[:1], poses])[: frames + 1]
     sweeps = [synth.simulate_sweep(world, poses[k], poses[k + 1],
                                    n_azimuth=n_azimuth, seed=SEED + k)
@@ -533,10 +570,11 @@ def sorted_cloud(rng, dev, B, Q, M, n_q, n_ref_i, margin, tq, tm):
     return q, ref, t_lo.contiguous(), t_hi.contiguous()
 
 
-def kernel_phase(dev, raw, msk, cfg, imu, dense):
+def kernel_phase(dev, raw, msk, cfg, imu, dense, rate5):
     """Each kernel vs its plain version at the replays' shapes (dense:
-    phase 12's sweeps).  Returns one row a kernel (its largest shape),
-    with the other shapes' rows under "other_shapes"."""
+    phase 12's sweeps; rate5: phase 13 a's).  Returns one row a kernel
+    (its largest shape), with the other shapes' rows under
+    "other_shapes"."""
     from loam_tpu_torch.ops.cuda import _build
     from loam_tpu_torch.ops.cuda import knn_topk as KN
     from loam_tpu_torch.ops.cuda import kselect as KS
@@ -745,7 +783,7 @@ def kernel_phase(dev, raw, msk, cfg, imu, dense):
         "loam_tpu/ops/pallas/knn_topk.py:133", shapes)
 
     rows.append(select_walk_row(dev, raw, msk, cfg, imu))
-    rows.append(wide_walk_row(dev, raw, msk, dense))
+    rows.append(wide_walk_row(dev, raw, msk, dense, rate5))
 
     # ---- kselect, every output compared exactly: lattice candidates
     # (exact ties in every row), the hybrid re-rank (C=8), the cell
@@ -891,13 +929,14 @@ def select_walk_row(dev, raw, msk, cfg, imu):
         walk_shape(replay_rings, 1, n_rings)])
 
 
-def wide_walk_row(dev, raw, msk, dense):
+def wide_walk_row(dev, raw, msk, dense, rate5):
     """select_walk at widths past 2048 or not a multiple of 32: every
     ring of phase 4's sweeps in rings of 1800 (phase 12 d's width; 57
     words, 2 a lane), of 4 sweeps of 7200 azimuths (a
     VLP-16 at 300 RPM in dual-return mode) in rings of 8192 (8 words a
-    lane), and of the dense cell's sweeps in rings of 3600 (113 words, 4
-    a lane: the row's own shape)."""
+    lane), of the dense cell's sweeps in rings of 3600 (113 words, 4 a
+    lane) and of phase 13 a's sweeps in rings of 7200 (225 words, 8 a
+    lane: the row's own shape)."""
     from loam_tpu_torch import frontend
     from loam_tpu_torch.io import synth
 
@@ -915,7 +954,8 @@ def wide_walk_row(dev, raw, msk, dense):
     fast = (np.stack([x for x, _ in sweeps]).astype(np.float32),
             np.stack([m for _, m in sweeps]))
     shapes = []
-    for (r, m), W in (((raw, msk), 1800), (fast, 8192), (dense, 3600)):
+    for (r, m), W in (((raw, msk), 1800), (fast, 8192), (dense, 3600),
+                      (rate5, RATE5_AZIMUTH)):
         cfg = dataclasses.replace(dense_config(), ring_width=W)
         ring_set = rings(r, m, cfg)
         shapes.append(walk_shape(ring_set, 1, ring_set[0].shape[0]))
@@ -974,17 +1014,19 @@ def replay(name, raw_t, msk_t):
         lambda: pipeline.replay_sweeps(raw_t, msk_t, cfg))
 
 
-def imu_sequence():
+def imu_sequence(frames: int = IMU_FRAMES, scan_period: float = 0.1):
     """The raw sweeps of the golden IMU scenario and the noise-free IMU
-    stream of its trajectory (imu_samples).  A NumPy copy of
+    stream of its trajectory (imu_samples), a sweep every scan_period
+    seconds.  A NumPy copy of
     tests/test_golden_parity_imu._make_imu_sequence."""
     from loam_tpu_torch.io import synth
     from torch_parity import imu_samples
 
     world = synth.make_world(seed=IMU_SEED)
     pose_fn = synth.oscillating_trajectory()
-    t_scans = IMU_T0 + 0.1 * np.arange(IMU_FRAMES)
+    t_scans = IMU_T0 + scan_period * np.arange(frames)
     sweeps = [synth.simulate_sweep_traj(world, pose_fn, t0=float(t),
+                                        scan_period=scan_period,
                                         n_azimuth=IMU_AZIMUTH,
                                         seed=IMU_SEED + k)
               for k, t in enumerate(t_scans)]
@@ -996,10 +1038,10 @@ def imu_sequence():
             t_scans, pose_fn)
 
 
-def frame_windows(imu_t, rpy, acc, t_scans):
+def frame_windows(imu_t, rpy, acc, t_scans, horizon: float = IMU_HORIZON):
     """Per-frame windows (t, rpy, acc, mask; leading frame axis) over the
     samples the oracle is fed, from t_scan - IMU_LEAD to t_scan +
-    IMU_HORIZON, valid samples first.  A NumPy copy of
+    horizon, valid samples first.  A NumPy copy of
     tests/test_golden_parity_imu._frame_windows."""
     F = t_scans.shape[0]
     t_w = np.zeros((F, IMU_CAP), np.float32)
@@ -1008,7 +1050,7 @@ def frame_windows(imu_t, rpy, acc, t_scans):
     m_w = np.zeros((F, IMU_CAP), bool)
     for f, t0 in enumerate(t_scans):
         sel = np.nonzero((imu_t >= t0 - IMU_LEAD)
-                         & (imu_t <= t0 + IMU_HORIZON))[0]
+                         & (imu_t <= t0 + horizon))[0]
         n = sel.shape[0]
         if not 0 < n <= IMU_CAP:
             raise AssertionError(f"frame {f}: {n} IMU samples in a window "
@@ -1175,13 +1217,17 @@ def batch_phase(dev, card: str):
 
 def oracle_process(name: str, out: str) -> int:
     """A NumPy oracle in a process of its own, started by start_oracle as
-    `chip_smoke.py --oracle NAME OUT`: phase 7's golden sequence or phase
-    12's dense sweeps through tests/golden/pipeline.run_pipeline, its
-    trajectories and seconds saved to OUT (.npz)."""
+    `chip_smoke.py --oracle NAME OUT`: phase 7's golden sequence, phase
+    12's dense sweeps or phase 13's sweeps at 5 Hz or 20 Hz through
+    tests/golden/pipeline.run_pipeline, its trajectories and seconds
+    saved to OUT (.npz).  The oracle encodes and decodes each point's
+    sweep time with a fixed 0.1 s, which without an IMU gives every
+    point its own sweep fraction at any rate."""
     sys.path.insert(0, str(ROOT / "tests"))
     from golden.pipeline import run_pipeline
 
-    sweeps = {"golden": golden_sequence, "dense": dense_sweeps}[name]()
+    sweeps = {"golden": golden_sequence, "dense": dense_sweeps,
+              "rate5": rate5_sweeps, "rate20": rate20_sweeps}[name]()
     t0 = time.perf_counter()
     oracle = run_pipeline(*sweeps)
     np.savez(out, seconds=time.perf_counter() - t0, **oracle)
@@ -2402,28 +2448,28 @@ def feature_overflow(raw_t, msk_t, cfg) -> dict:
     return out
 
 
-def dense_phase(dev, card: str, started):
-    """Phase 12, the dense cell: DENSE_F sweeps of a VLP-16 in dual-return
-    mode replayed in rings of 3600 in three mapping modes (DENSE_MODES),
-    each integrated trajectory within ATE_GATE of the NumPy oracle
-    (started: start_oracle("dense")), each through its new kernel
-    instances; then the command line at rings of 1800.  Prints the
-    feature caps' and the map's overflow.  Returns the replays' launch
-    counts."""
+def mode_replays(label, modes, sweeps, cfg0, started, dev, card: str):
+    """sweeps (NumPy raw, mask) replayed on the card at cfg0 with each
+    entry of `modes` (name -> (config changes, wrappers that must launch,
+    wrappers that must not, {wrapper: [kernel instances that must
+    launch]})), each integrated trajectory held within ATE_GATE of the
+    NumPy oracle (started: start_oracle), after printing what the
+    feature caps cut.  Returns (launch counts by mode, the gates failed,
+    the outputs by mode)."""
     from loam_tpu_torch import metrics, pipeline
 
-    t_phase = time.perf_counter()
-    raw, msk = dense_sweeps()
+    raw, msk = sweeps
     raw_t = torch.tensor(raw, device=dev)
     msk_t = torch.tensor(msk, device=dev)
-    cfg0 = dense_config()
-    print(f"dense: {DENSE_F} sweeps of {DENSE_AZIMUTH} azimuths, "
+    frames = raw.shape[0]
+    print(f"{label}: {frames} sweeps of {raw.shape[1] // cfg0.n_scans} "
+          f"azimuths at scan_period {cfg0.scan_period} s, "
           f"{int(msk.sum(1).max())} points a sweep at most, rings of "
           f"{cfg0.ring_width}; feature caps (most a frame or ring, cap, "
           f"points cut) {feature_overflow(raw_t, msk_t, cfg0)} [{card}]",
           flush=True)
     launches, results = {}, {}
-    for name, (over, required, forbidden, instances) in DENSE_MODES.items():
+    for name, (over, required, forbidden, instances) in modes.items():
         cfg = dataclasses.replace(cfg0, **over)
         (outs, state), counts, seconds = counted_replay(
             name, required, forbidden,
@@ -2443,14 +2489,28 @@ def dense_phase(dev, card: str, started):
         est = outs.pose_integrated.cpu().numpy()
         ate = metrics.ate_rmse(est[:, 3:6], oracle["integrated"][:, 3:6])
         cadence = np.array_equal(outs.mapped.cpu().numpy(), oracle["mapped"])
-        print(f"replay {name}: {DENSE_F} frames in {seconds:.3f} s = "
-              f"{DENSE_F / seconds:.2f} frames/s; integrated ATE vs golden "
+        print(f"replay {name}: {frames} frames in {seconds:.3f} s = "
+              f"{frames / seconds:.2f} frames/s; integrated ATE vs golden "
               f"oracle {100 * ate:.4f} cm; mapping cadence equal: {cadence}; "
               f"local map overflow {int(state.map.local_map_overflow)}, NaN "
               f"skips {int(state.map.nan_skips)}; launches "
               f"{launches[name]} [{card}]", flush=True)
         if not (np.isfinite(est).all() and ate < ATE_GATE):
             failed.append(f"{name}: integrated ATE {ate:.4f} m")
+    return launches, failed, {n: r[0] for n, r in results.items()}
+
+
+def dense_phase(dev, card: str, started):
+    """Phase 12, the dense cell: DENSE_F sweeps of a VLP-16 in dual-return
+    mode replayed in rings of 3600 in three mapping modes (DENSE_MODES),
+    each integrated trajectory within ATE_GATE of the NumPy oracle
+    (started: start_oracle("dense")), each through its new kernel
+    instances; then the command line at rings of 1800.  Prints the
+    feature caps' and the map's overflow.  Returns the replays' launch
+    counts."""
+    t_phase = time.perf_counter()
+    launches, failed, _ = mode_replays("dense", DENSE_MODES, dense_sweeps(),
+                                       dense_config(), started, dev, card)
 
     # (d) the command line at rings of DENSE_CLI_WIDTH, as a subprocess
     out = OUT_DIR / "cli_dense"
@@ -2487,6 +2547,137 @@ def dense_phase(dev, card: str, started):
           flush=True)
     if failed:
         raise AssertionError(f"phase 12 failed its gates: {failed}")
+    return launches
+
+
+def rate5_config():
+    """Phase 13 a's LoamConfig: rings of RATE5_AZIMUTH at RATE5_T."""
+    return dataclasses.replace(dense_config(), ring_width=RATE5_AZIMUTH,
+                               scan_period=RATE5_T)
+
+
+def rate20_config():
+    """Phase 13 b's LoamConfig: LoamConfig() at RATE20_T."""
+    from loam_tpu_torch.config import LoamConfig
+
+    return LoamConfig(scan_period=RATE20_T)
+
+
+def rate5_sweeps():
+    """RATE5_F sweeps of the default cell's recipe at RATE5_T, RATE5_AZIMUTH
+    azimuths each (NumPy)."""
+    return make_sweeps(RATE5_F, RATE5_AZIMUTH, RATE5_T)
+
+
+def rate20_sweeps():
+    """RATE20_F sweeps of the default cell's recipe at RATE20_T (NumPy)."""
+    return make_sweeps(RATE20_F, RATE20_AZIMUTH, RATE20_T)
+
+
+def rates_phase(dev, card: str, rate5, started5, started20):
+    """Phase 13, the other rotation rates: (a) rate5 (rate5_sweeps) in
+    RATE5_MODES, each through the walk's 8 words a lane, and (b)
+    rate20_sweeps strict, each integrated trajectory within ATE_GATE of
+    its NumPy oracle (started5, started20: start_oracle); (c) the golden
+    IMU scenario at RATE5_T against the ground truth from the first
+    sweep's end and a no-IMU rerun; (d) the streaming engine paced over
+    (b)'s sweeps on its own clock, held to (b)'s replay by the engine's
+    integration rule.  Returns the launch counts of every run."""
+    from loam_tpu_torch import metrics, pipeline
+    from loam_tpu_torch.imu import ImuStream
+    from loam_tpu_torch.runtime.streaming import StreamingEngine
+    from torch_parity import online_rule_replay, paced_engine_run
+
+    t_phase = time.perf_counter()
+    # (a) 300 RPM in dual-return mode, in phase 12's three mapping modes;
+    # (b) 1200 RPM, strict
+    launches, failed, _ = mode_replays("5 Hz", RATE5_MODES, rate5,
+                                       rate5_config(), started5, dev, card)
+    raw20, msk20 = rate20_sweeps()
+    cfg20 = rate20_config()
+    counts, failed20, outs = mode_replays("20 Hz", RATE20_MODES,
+                                          (raw20, msk20), cfg20, started20,
+                                          dev, card)
+    launches.update(counts)
+    failed += failed20
+
+    # (c) the golden IMU scenario at 300 RPM: the horizon a sweep's end
+    # plus 30 ms, as at 10 Hz; no oracle (it fixes 0.1 s in its IMU times)
+    raw_i, msk_i, imu_t, rpy, acc, t_scans, pose_fn = imu_sequence(
+        RATE_IMU_F, RATE5_T)
+    stream = ImuStream(*(torch.tensor(a, device=dev) for a in frame_windows(
+        imu_t, rpy, acc, t_scans, RATE5_T + IMU_HORIZON - 0.1)))
+    ri_t, mi_t = torch.tensor(raw_i, device=dev), torch.tensor(msk_i,
+                                                               device=dev)
+    ti_t = torch.tensor(t_scans.astype(np.float32), device=dev)
+    cfg_i = imu_config(RATE5_T)
+    outs_i, launches["5 Hz imu"], seconds = counted_replay(
+        "5 Hz imu", *IMU_PATH,
+        lambda: pipeline.replay_sweeps(ri_t[:3], mi_t[:3], cfg_i,
+                                       stream.map(lambda a: a[:3]),
+                                       ti_t[:3]),
+        lambda: pipeline.replay_sweeps(ri_t, mi_t, cfg_i, stream, ti_t))
+    # the trajectory starts at the end of the first sweep, which the
+    # ground truth of the 10 Hz gate (absolute positions) puts 0.20 m
+    # along and at 5 Hz 0.30 m: held here from that pose, the absolute
+    # figure printed beside
+    est = outs_i.pose_integrated.cpu().numpy()[:, 3:6]
+    plain = pipeline.replay_sweeps(ri_t, mi_t, cfg_i).pose_integrated
+    plain = plain.cpu().numpy()[:, 3:6]
+    gt = np.stack([pose_fn(t + RATE5_T)[3:6] for t in t_scans])
+    ate_gt, ate_plain = (metrics.ate_rmse(e, gt - gt[0]) for e in (est, plain))
+    moved = float(np.linalg.norm(est - plain, axis=1).max())
+    print(f"replay 5 Hz imu: {RATE_IMU_F} sweeps of {IMU_AZIMUTH} azimuths "
+          f"at scan_period {RATE5_T} s with {int(stream.mask.sum(1).max())} "
+          f"IMU samples a window at most, {seconds:.3f} s = "
+          f"{RATE_IMU_F / seconds:.2f} frames/s; ATE vs ground truth from "
+          f"the first sweep's end {ate_gt:.4f} m (gate {IMU_GT_GATE}; "
+          f"without the IMU {ate_plain:.4f} m), vs absolute ground truth "
+          f"{metrics.ate_rmse(est, gt):.4f} m (the first sweep ends "
+          f"{float(np.linalg.norm(gt[0])):.4f} m along, at 10 Hz "
+          f"{float(np.linalg.norm(pose_fn(IMU_T0 + 0.1)[3:6])):.4f} m); "
+          f"the no-IMU rerun "
+          f"differs by {moved:.4f} m (gate > {IMU_MOVES}); launches "
+          f"{launches['5 Hz imu']} [{card}]", flush=True)
+    if not (np.isfinite(est).all() and ate_gt < IMU_GT_GATE
+            and ate_gt < ate_plain and moved > IMU_MOVES):
+        failed.append(f"5 Hz imu: ground-truth ATE {ate_gt:.4f} m (no IMU "
+                      f"{ate_plain:.4f} m), moved {moved} m")
+
+    # (d) the streaming engine over (b)'s sweeps on its own clock
+    def run_d():
+        eng = StreamingEngine(cfg20, device=dev)
+        eng.start()
+        try:
+            return paced_engine_run(eng, raw20, msk20), eng._sweep_clock
+        finally:
+            eng.stop()
+
+    ((odom, aft, integrated), clock), launches["online 20 Hz"], secs = \
+        counted_replay("online 20 Hz", ONLINE_PATH, ("knn_select",),
+                       lambda: None, run_d)
+    ref, online = online_rule_replay(raw20, msk20, cfg20, dev)
+    same = all(torch.equal(getattr(ref, n), getattr(outs["20 Hz"], n))
+               for n in POSE_NAMES + ("mapped",))
+    gaps = [np.abs(a.astype(np.float64) - b.cpu().numpy())
+            for a, b in ((odom, ref.pose_odom), (aft, ref.pose_aft),
+                         (integrated, online))]
+    rot = max(float(g[:, :3].max()) for g in gaps)
+    trans = max(float(g[:, 3:].max()) for g in gaps)
+    print(f"online 20 Hz: {RATE20_F} sweeps in {secs:.3f} s = "
+          f"{RATE20_F / secs:.2f} frames/s with a drain after each, the "
+          f"engine's clock at {clock:.6f} s after them; largest gap to the "
+          f"20 Hz replay by the integration rule {rot:.3g} rad, "
+          f"{trans:.3g} m (the stepwise replay equals it: {same}); "
+          f"launches {launches['online 20 Hz']} [{card}]", flush=True)
+    if not (rot < BATCH_ROT and trans < BATCH_TRANS and same
+            and abs(clock - RATE20_F * RATE20_T) < 1e-9):
+        failed.append(f"online 20 Hz: {rot} rad, {trans} m from the replay, "
+                      f"stepwise equal {same}, clock {clock} s")
+    print(f"rates phase: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    if failed:
+        raise AssertionError(f"phase 13 failed its gates: {failed}")
     return launches
 
 
@@ -2551,11 +2742,16 @@ def main() -> int:
 
     raw, msk = make_sweeps()
     imu = imu_inputs(dev)
+    rate5 = rate5_sweeps()
+    t_kernels = time.perf_counter()
     rows = kernel_phase(dev, raw, msk, replay_config("default"), imu,
-                        dense_sweeps())
+                        dense_sweeps(), rate5)
     print_rows(rows, card)
+    print(f"kernel phase: {time.perf_counter() - t_kernels:.1f} s [{card}]",
+          flush=True)
     golden = start_oracle("golden")
     dense = start_oracle("dense")
+    rates = start_oracle("rate5"), start_oracle("rate20")
 
     from golden.pipeline import run_pipeline
 
@@ -2598,27 +2794,29 @@ def main() -> int:
                                     replays["default"]))
     launches.update(long_phase(dev, card))
     launches.update(dense_phase(dev, card, dense))
+    launches.update(rates_phase(dev, card, rate5, *rates))
 
     # the windowed k-NN runs at k=5 in the strict replays, the entry and
     # the online engine only, at k=8 in the hybrid ones (phase 10's
-    # replays too) and at k=16 in phase 12's; odom_corr walks untruncated
-    # in phase 11's replays only; phase 12's walks and its cell-bucket
-    # selections have rows of their own; every other count sums over the
-    # replays
+    # replays too) and at k=16 in phase 12's and 13's; odom_corr walks
+    # untruncated in phase 11's replays only; the walks and cell-bucket
+    # selections of phase 12 and phase 13 a have rows of their own;
+    # every other count sums over the replays
     k8_runs = ("hybrid", "batch", "golden hybrid", "cli bag", "scale-out a",
                "scale-out b", "scale-out c", "long hybrid")
     online = [n for n in launches if n.startswith("online")]
-    dense = list(DENSE_MODES)
+    dense = list(DENSE_MODES) + list(RATE5_MODES)
     for r in rows:
         if r["name"] == "knn_topk_dyn":
             r["launches"] = sum(
                 launches[n]["knn_topk_dyn"] for n in
                 ["default", "entry", "long strict", "long split",
-                 "dense strict"] + online)
+                 "dense strict", "5 Hz strict", "20 Hz"] + online)
         elif r["name"] == "knn_topk_dyn_k8":
             r["launches"] = sum(launches[n]["knn_topk_dyn"] for n in k8_runs)
         elif r["name"] == "knn_topk_dyn_k16":
-            r["launches"] = launches["dense hybrid"]["knn_topk_dyn"]
+            r["launches"] = sum(launches[n]["knn_topk_dyn"]
+                                for n in ("dense hybrid", "5 Hz hybrid"))
         elif r["name"] in ("odom_corr", "odom_corr_untruncated"):
             r["launches"] = sum(
                 c["odom_corr"] for n, c in launches.items()
@@ -2629,10 +2827,11 @@ def main() -> int:
             r["launches"] = sum(c["select_walk"] for n, c in launches.items()
                                 if n not in dense)
         elif r["name"] == "kselect_dense":
-            r["launches"] = launches["dense cells"]["knn_select"]
+            r["launches"] = sum(launches[n]["knn_select"]
+                                for n in ("dense cells", "5 Hz cells"))
         elif r["name"] == "kselect":
             r["launches"] = sum(c["knn_select"] for n, c in launches.items()
-                                if n != "dense cells")
+                                if n not in ("dense cells", "5 Hz cells"))
         else:
             r["launches"] = sum(c[r["counter"]] for c in launches.values())
         if r["launches"] <= 0:
@@ -2646,6 +2845,12 @@ def main() -> int:
                 if shape["shape"].startswith("B=1,R=16,"):
                     shape["launches"] = sum(launches[n]["select_walk"]
                                             for n in online)
+        if r["name"] == "select_walk_wide":
+            # phase 12 walks at W=3600, phase 13 a at the row's own shape
+            for shape in r["other_shapes"]:
+                if shape["shape"].startswith("B=1,R=208,W=3600,"):
+                    shape["launches"] = sum(launches[n]["select_walk"]
+                                            for n in DENSE_MODES)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

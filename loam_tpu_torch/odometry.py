@@ -81,7 +81,8 @@ def _odom_residuals(transform, late, sharp, flat, corner_last, surf_last,
                     corr, cfg: LoamConfig):
     """One linearization (src/laserOdometry.cpp:530-583, 653-694)."""
     cj1, cj2, sj1, sj2, sj3 = corr
-    proj_c = transform_to_start(sharp.xyz, sharp.sweep_time(), transform)
+    proj_c = transform_to_start(sharp.xyz, sharp.sweep_time(cfg.scan_period),
+                                transform)
     dir_c, d_c = residuals.point_to_line(
         proj_c, _gather(corner_last, cj1), _gather(corner_last, cj2))
     late = late[:, None]
@@ -89,7 +90,8 @@ def _odom_residuals(transform, late, sharp, flat, corner_last, surf_last,
     keep_c = ((cj2 >= 0) & sharp.mask & (s_c > cfg.weight_keep_threshold)
               & (d_c != 0.0))
 
-    proj_s = transform_to_start(flat.xyz, flat.sweep_time(), transform)
+    proj_s = transform_to_start(flat.xyz, flat.sweep_time(cfg.scan_period),
+                                transform)
     normal, pd = residuals.plane_from_tripod(
         _gather(surf_last, sj1), _gather(surf_last, sj2),
         _gather(surf_last, sj3))
@@ -113,8 +115,10 @@ def _odom_associate(transform, feats: FeatureClouds, corner_last,
     """One correspondence re-association (src/laserOdometry.cpp:474-651),
     batched (transform (B, 6)) or for one scenario (transform (6,))."""
     sharp, flat = feats.sharp, feats.flat
-    proj_c = transform_to_start(sharp.xyz, sharp.sweep_time(), transform)
-    proj_s = transform_to_start(flat.xyz, flat.sweep_time(), transform)
+    proj_c = transform_to_start(sharp.xyz, sharp.sweep_time(cfg.scan_period),
+                                transform)
+    proj_s = transform_to_start(flat.xyz, flat.sweep_time(cfg.scan_period),
+                                transform)
     common = dict(gate_sq=cfg.odom_nn_gate_sq, window=cfg.ring_window,
                   truncate=cfg.emulate_upward_scan_truncation)
     cj1, cj2 = odom_correspondences(
@@ -248,11 +252,12 @@ def accumulate_pose(transform_sum, transform, imu: ImuTrans,
     return torch.cat([r_new, t_new])
 
 
-def _project_cloud_to_end(cloud: PointCloud, transform,
+def _project_cloud_to_end(cloud: PointCloud, transform, cfg: LoamConfig,
                           imu: ImuTrans | None = None):
     tail = () if imu is None else (imu.rpy_start, imu.rpy_cur,
                                    imu.shift_from_start)
-    xyz = transform_to_end(cloud.xyz, cloud.sweep_time(), transform, *tail)
+    xyz = transform_to_end(cloud.xyz, cloud.sweep_time(cfg.scan_period),
+                           transform, *tail)
     # TransformToEnd resets the fractional sweep time (:193)
     return cloud.replace(
         xyz=torch.where(cloud.mask[..., None], xyz, 0.0),
@@ -315,15 +320,15 @@ def _odometry_batch(state: OdomState, feats: FeatureClouds, cfg: LoamConfig,
     no_imu = ImuTrans.zeros(transform.device).map(lambda t: t.expand(B, 3))
     tsum = accumulate_pose(state.transform_sum, transform,
                            no_imu if imu is None else imu, cfg)
-    corner_next = _project_cloud_to_end(feats.less_sharp, transform, imu)
-    surf_next = _project_cloud_to_end(feats.less_flat, transform, imu)
+    corner_next = _project_cloud_to_end(feats.less_sharp, transform, cfg, imu)
+    surf_next = _project_cloud_to_end(feats.less_flat, transform, cfg, imu)
 
     frame_count = state.frame_count + 1
     publish = frame_count >= cfg.skip_frame_num + 1
     full = feats.full
     if bool(publish.any()):
-        full = where_tree(publish,
-                          _project_cloud_to_end(full, transform, imu), full)
+        full = where_tree(
+            publish, _project_cloud_to_end(full, transform, cfg, imu), full)
     frame_count = torch.where(publish, 0, frame_count).to(torch.int32)
 
     new_state = OdomState(

@@ -42,8 +42,9 @@ after its pop: it can report idle between a pop and the flag.
 Usage:
     eng = StreamingEngine(cfg)          # device=None: the CUDA device
     eng.start()
-    eng.push_sweep(xyz, mask)           # from the sensor thread, 10 Hz
-    pose = eng.latest_pose()            # integrated 10 Hz pose
+    eng.push_sweep(xyz, mask)           # from the sensor thread, a sweep
+                                        # every cfg.scan_period seconds
+    pose = eng.latest_pose()            # integrated pose at sweep rate
     eng.stop(); print(eng.stats())
 """
 
@@ -325,7 +326,8 @@ class StreamingEngine:
     def push_sweep(self, xyz, mask, t_scan: float | None = None) -> bool:
         """Feed one raw sweep (non-blocking; oldest dropped under load,
         like the reference's lossy subscriber queues).  t_scan: sweep
-        start time; defaults to a 10 Hz wall clock."""
+        start time; defaults to a clock that starts at 0 and advances by
+        cfg.scan_period a sweep."""
         self._raise_failure()
         if t_scan is None:
             t_scan = self._sweep_clock

@@ -332,7 +332,7 @@ def test_odom_corr_kernel_ties_and_ring_orders(cuda, case, surf, truncate):
         assert (out[0][0] >= 0).sum() > Q // 4
 
 
-WIDE_WALKS = [(B, R, W, depth, depth) for W in (1800, 3600, 8192)
+WIDE_WALKS = [(B, R, W, depth, depth) for W in (1800, 3600, 7200, 8192)
               for B, R in ((1, 16), (1, 208)) for depth in (0, 33)]
 
 
@@ -347,7 +347,8 @@ def test_select_walk_kernel_matches_plain(cuda, B, R, W, corner_k, flat_k):
     under 12 points, reaches across words and subregions, index W-1, bit
     31), the corner and flat walks cut at corner_k and flat_k candidates
     (0: the whole subregion); rings wider than 2048 (13-bit indices, 4 and
-    8 bit-field words a lane) and not a multiple of 32 (1800, 3600)."""
+    8 bit-field words a lane) and not a multiple of 32 (1800, 3600, 7200:
+    a VLP-16 at 300 RPM in dual-return mode)."""
     cm, fm, p0, _ = walk_meta_case(B, R, W, seed=R + W + corner_k + flat_k)
     kw = walk_kwargs(LoamConfig(), W, corner_k, flat_k)
     cm, fm = (torch.tensor(a, device=cuda) for a in (cm, fm))
@@ -512,6 +513,29 @@ def test_replay_modes_agree_with_cpu(cuda):
         assert torch.equal(gpu.mapped.cpu(), cpu.mapped)
         diff = (gpu.pose_integrated.cpu() - cpu.pose_integrated).abs()
         assert diff[:, :3].max() < 1e-4 and diff[:, 3:].max() < 1e-3, diff
+
+
+@pytest.mark.parametrize("T", [0.05, 0.1, 0.2])
+def test_sweep_time_on_card_equals_cpu(cuda, T):
+    """A point's sweep fraction decoded by scan_period T: on the card bit
+    for bit what the CPU gives for the same encoded times (1 / T taken
+    in double, one float32 multiply on either device); at 0.1 s also the
+    fixed decode 10 * frac of the C++ and loam_tpu."""
+    from loam_tpu_torch import frontend
+    from loam_tpu_torch.types import PointCloud
+
+    raw, msk, _ = make_sweeps(1, scan_period=T)
+    cfg = dataclasses.replace(small_config(), scan_period=T)
+    cpu = frontend.ingest_sweep(torch.tensor(raw[0]), torch.tensor(msk[0]),
+                                cfg).flatten()
+    card = PointCloud(xyz=cpu.xyz.to(cuda), rel=cpu.rel.to(cuda),
+                      mask=cpu.mask.to(cuda))
+    got = card.sweep_time(T)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), cpu.sweep_time(T))
+    if T == 0.1:
+        assert torch.equal(got, 10.0 * (card.rel - torch.trunc(card.rel)))
+    assert float(got[card.mask].max()) > 0.99
 
 
 @pytest.mark.parametrize("mode", [{}, dict(map_exact_regather_every=5),

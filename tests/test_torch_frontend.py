@@ -56,7 +56,7 @@ def test_types_decode_ring_and_time():
                    mask=torch.tensor([True, True, False, True]))
     assert c.count().item() == 3 and c.capacity == 4
     np.testing.assert_array_equal(c.ring().numpy(), [0, 0, 3, 15])
-    np.testing.assert_array_equal(c.sweep_time().numpy(),
+    np.testing.assert_array_equal(c.sweep_time(0.1).numpy(),
                                   10.0 * (rel - np.trunc(rel)))
     s = Sweep(xyz=torch.zeros(2, 16, 8, 3), rel=torch.zeros(2, 16, 8),
               mask=torch.zeros(2, 16, 8, dtype=torch.bool))

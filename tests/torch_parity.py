@@ -91,10 +91,13 @@ def to_port_cfg(jcfg) -> PortConfig:
 
 
 def make_sweeps(frames: int, seed: int = 3, n_azimuth: int = 480,
-                speed: float = 0.9, yaw_rate: float = 0.12):
-    """Seeded synthetic VLP-16 sweeps (F, N, 3), masks (F, N), poses."""
+                speed: float = 0.9, yaw_rate: float = 0.12,
+                scan_period: float = 0.1):
+    """Seeded synthetic VLP-16 sweeps (F, N, 3), masks (F, N), poses; a
+    sweep lasts scan_period seconds."""
     world = synth.make_world(seed=seed)
-    poses = synth.straight_trajectory(frames, speed=speed, yaw_rate=yaw_rate)
+    poses = synth.straight_trajectory(frames, speed=speed, yaw_rate=yaw_rate,
+                                      scan_period=scan_period)
     poses = np.vstack([poses[:1], poses])[: frames + 1]
     sweeps = [synth.simulate_sweep(world, poses[k], poses[k + 1],
                                    n_azimuth=n_azimuth, seed=seed + k)
@@ -559,17 +562,18 @@ def raw_imu(pyr, acc_int, g: float = 9.81):
     return np.stack([roll, pitch, yaw], -1), acc
 
 
-def paced_engine_run(eng, raw, msk, t_scans, imu=None):
+def paced_engine_run(eng, raw, msk, t_scans=None, imu=None):
     """A started streaming engine fed one sweep at a time, the IMU
     samples (t, rpy, acc) up to the sweep's window end pushed first as
     the command line interleaves them, with drain() after each sweep.
-    Returns (odom (F, 6), aft (F, 6), integrated (F, 6)): the latest
-    odometry and aft-mapped poses read after each frame, and the
-    integrated trajectory."""
+    Without t_scans (and imu) each sweep is stamped by the engine's own
+    clock.  Returns (odom (F, 6), aft (F, 6),
+    integrated (F, 6)): the latest odometry and aft-mapped poses read
+    after each frame, and the integrated trajectory."""
     odom, aft = [], []
     cursor = 0
     for k in range(raw.shape[0]):
-        t_scan = float(t_scans[k])
+        t_scan = None if t_scans is None else float(t_scans[k])
         while imu is not None and cursor < imu[0].shape[0] and \
                 imu[0][cursor] <= t_scan + eng.cfg.scan_period + 0.05:
             eng.push_imu(*(a[cursor] for a in imu))
