@@ -151,7 +151,19 @@ Phases, each of which raises (non-zero exit) on failure:
      rerun) and moved by its IMU (> 1 mm from that rerun);
      (d) the streaming engine paced over (b)'s sweeps on its own clock
      (scan_period a sweep), equal to (b)'s replay by the engine's rule.
-     Prints the feature caps' and the map's overflow, frames/s.
+     Prints the feature caps' and the map's overflow, frames/s;
+ 14. the selection knobs and the unpruned mapping k-NN: the walk at
+     suppress_neighbors 8 and 16 (reaches past 3 bits) and cut at
+     corner_scan_k = flat_scan_k = 10, on phase 4's rings (B=1 x R=208,
+     W=2048) and phase 13 a's (W=7200), and knn_topk_dyn K=5 at full
+     windows on the mapping k-NN row's clouds, each bit for bit against
+     its plain version; then phase 4's sweeps replayed strict at
+     suppress_neighbors=8 and at the depth of 10, each within 5 cm
+     integrated ATE of the ground truth, and at map_knn_prune=False,
+     within 5 cm of the golden oracle on its cadence and within 1e-4 rad
+     / 1e-3 m of phase 4's strict replay, every query block of its k-NN
+     on full windows.  Prints frame 0's feature counts at each reach and
+     the phase's seconds.
 The kernel rows carry the batch's shapes too (B=8 scenarios), each
 compared bit for bit; odom_corr_untruncated is odom_corr's walk without
 the upward-scan truncation, at the corner and surf shapes, its launches
@@ -159,7 +171,10 @@ those of phase 11's figure-8 replays; knn_topk_dyn_k16, select_walk_wide
 and kselect_dense are the windowed k-NN, the walk and kselect at the
 shapes of phase 12 and at other k and widths, their launches phase
 12's (select_walk_wide's also phase 13 a's, at its own shape, and the
-5 Hz hybrid and cells replays' in knn_topk_dyn_k16 and kselect_dense).
+5 Hz hybrid and cells replays' in knn_topk_dyn_k16 and kselect_dense);
+select_walk_reach, select_walk_depth and knn_topk_dyn_full are phase
+14's, their launches those of its replays at suppress_neighbors=8, at
+the depth of 10 and unpruned.
 The last lines are the smoke's seconds, the kernels JSON, the card's
 name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -357,6 +372,20 @@ RATE20_AZIMUTH = 900
 RATE20_MODES = {"20 Hz": ({}, ("knn_topk", "knn_topk_dyn", "odom_corr",
                                "select_walk"), ("knn_select",), {})}
 RATE_IMU_F = 20              # the golden IMU scenario's 4 s at 0.2 s
+# the selection knobs and the unpruned mapping k-NN (phase 14) on the
+# default cell: suppression reaches past the old 3-bit fields, walks cut
+# under a subregion's width (2048 / 6 + 8 candidates)
+REACHES = (8, 16)            # suppress_neighbors of the walk rows
+SCAN_K = 10                  # corner_scan_k = flat_scan_k
+KNOB_PATH = (("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk"),
+             ("knn_select",))
+# name -> (config changes, held to: "truth" the ground truth, "oracle"
+# the golden oracle and phase 4's strict replay)
+KNOB_MODES = {
+    "reach 8": (dict(suppress_neighbors=8), "truth"),
+    "scan 10": (dict(corner_scan_k=SCAN_K, flat_scan_k=SCAN_K), "truth"),
+    "unpruned": (dict(map_knn_prune=False), "oracle"),
+}
 POSE_NAMES = ("pose_odom", "pose_aft", "pose_integrated")
 KERNELS = ("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk",
            "knn_select")
@@ -481,16 +510,25 @@ def _compare(name, kernel_out, plain_out):
     return err
 
 
+def cell_poses(frames: int = FRAMES, scan_period: float = 0.1):
+    """The default cell's ground truth (frames + 1, 6): a static first
+    sweep, then straight at 0.9 m/s and 0.1 rad/s; sweep k spans poses k
+    to k + 1, so frame k's estimate is pose k + 1."""
+    from loam_tpu_torch.io import synth
+
+    poses = synth.straight_trajectory(frames, speed=0.9, yaw_rate=0.1,
+                                      scan_period=scan_period)
+    return np.vstack([poses[:1], poses])[: frames + 1]
+
+
 def make_sweeps(frames: int = FRAMES, n_azimuth: int = N_AZIMUTH,
                 scan_period: float = 0.1):
-    """The default cell's recipe (NumPy): seed 21, straight at 0.9 m/s
-    and 0.1 rad/s, a sweep every scan_period seconds."""
+    """The default cell's recipe (NumPy): seed 21, cell_poses, a sweep
+    every scan_period seconds."""
     from loam_tpu_torch.io import synth
 
     world = synth.make_world(seed=SEED)
-    poses = synth.straight_trajectory(frames, speed=0.9, yaw_rate=0.1,
-                                      scan_period=scan_period)
-    poses = np.vstack([poses[:1], poses])[: frames + 1]
+    poses = cell_poses(frames, scan_period)
     sweeps = [synth.simulate_sweep(world, poses[k], poses[k + 1],
                                    n_azimuth=n_azimuth, seed=SEED + k)
               for k in range(frames)]
@@ -568,6 +606,41 @@ def sorted_cloud(rng, dev, B, Q, M, n_q, n_ref_i, margin, tq, tm):
         q[..., 0], torch.full((B,), n_q, dtype=torch.int32, device=dev),
         ref[..., 0], mask.expand(B, M), tq, tm, margin + 1e-3)
     return q, ref, t_lo.contiguous(), t_hi.contiguous()
+
+
+def windowed(name, k, q, ref, n_q, n_ref_i, t_lo, t_hi, tq, tm, note="",
+             plain_reps=20):
+    """knn_topk_dyn against its plain version on these tile windows,
+    every output compared exactly; the live (n_q, n_ref_i) queries and
+    references, the pairs the live query blocks scan.  Returns the
+    shape's measurement dict."""
+    from loam_tpu_torch.ops.cuda import knn_topk as KN
+
+    B, Q, M = q.shape[0], q.shape[1], ref.shape[1]
+    i32 = dict(dtype=torch.int32, device=q.device)
+    nq_t = torch.full((B,), n_q, **i32)
+    nr_t = torch.full((B,), n_ref_i, **i32)
+    run_k = lambda: KN._launch(q, ref, nq_t, nr_t, k, t_lo, t_hi, tq,
+                               tm)[:2]
+    run_p = lambda: KN.knn_topk_plain(q, ref, nq_t, nr_t, k, t_lo, t_hi,
+                                      tq=tq, tm=tm)
+    # references each live query block really scans
+    blocks = -(-n_q // tq)
+    seen = (torch.clamp(t_hi[:, :blocks].long() * tm, max=n_ref_i)
+            - t_lo[:, :blocks].long().clamp(min=0) * tm).clamp(min=0)
+    pairs = int(seen.sum()) * tq
+    return dict(
+        shape=f"B={B},Q={Q},M={M},live={n_q}x{n_ref_i},k={k},"
+              f"pairs={pairs}" + note,
+        max_abs_err=_compare(name, run_k(), run_p()),
+        ms=time_ms(run_k), device_ms=device_ms(run_k),
+        plain_ms=time_ms(run_p, reps=plain_reps),
+        # materialises the live (n_q, n_ref) matrices: 1.2 GB a
+        # scenario at the largest shape
+        library_ms=time_ms(lambda: _library_knn(
+            q[:, :n_q], ref[:, :n_ref_i], k), reps=5),
+        **bound(B * (12 * (n_q + n_ref_i) + 8 * k * blocks * tq),
+                PAIR_OPS * pairs))
 
 
 def kernel_phase(dev, raw, msk, cfg, imu, dense, rate5):
@@ -656,32 +729,6 @@ def kernel_phase(dev, raw, msk, cfg, imu, dense, rate5):
     # five live query blocks (the last with rows past n_q), one that sees
     # 3 references, one with an empty window, one whose window needs both
     # clamps, three dead blocks.
-    def windowed(name, k, q, ref, n_q, n_ref_i, t_lo, t_hi, tq, tm, note=""):
-        B, Q, M = q.shape[0], q.shape[1], ref.shape[1]
-        nq_t = torch.full((B,), n_q, **i32)
-        nr_t = torch.full((B,), n_ref_i, **i32)
-        run_k = lambda: KN._launch(q, ref, nq_t, nr_t, k, t_lo, t_hi, tq,
-                                   tm)[:2]
-        run_p = lambda: KN.knn_topk_plain(q, ref, nq_t, nr_t, k, t_lo, t_hi,
-                                          tq=tq, tm=tm)
-        # references each live query block really scans
-        blocks = -(-n_q // tq)
-        seen = (torch.clamp(t_hi[:, :blocks].long() * tm, max=n_ref_i)
-                - t_lo[:, :blocks].long().clamp(min=0) * tm).clamp(min=0)
-        pairs = int(seen.sum()) * tq
-        return dict(
-            shape=f"B={B},Q={Q},M={M},live={n_q}x{n_ref_i},k={k},"
-                  f"pairs={pairs}" + note,
-            max_abs_err=_compare(name, run_k(), run_p()),
-            ms=time_ms(run_k), device_ms=device_ms(run_k),
-            plain_ms=time_ms(run_p),
-            # materialises the live (n_q, n_ref) matrices: 1.2 GB a
-            # scenario at the largest shape
-            library_ms=time_ms(lambda: _library_knn(
-                q[:, :n_q], ref[:, :n_ref_i], k), reps=5),
-            **bound(B * (12 * (n_q + n_ref_i) + 8 * k * blocks * tq),
-                    PAIR_OPS * pairs))
-
     tq, tm = 256, 512
     for k, margin, name in ((5, 1.0, "knn_topk_dyn"),
                             (8, 2.0, "knn_topk_dyn_k8")):
@@ -845,11 +892,11 @@ def kernel_phase(dev, raw, msk, cfg, imu, dense, rate5):
 
 
 def walk_inputs(sweep, cfg):
-    """The walk's inputs for every ring of `sweep` at cfg: corner and flat
-    meta, the pre-picked masks, the wrapper's keywords, and what the
-    serial NumPy walk of tests/torch_parity counts for them: candidates
-    walked (meta words read), picks, and the kernel's rounds (32-candidate
-    chunks plus picks)."""
+    """The walk's inputs for every ring of `sweep` at cfg (its reach and
+    depths): corner and flat meta, the pre-picked masks, the wrapper's
+    keywords, and what the serial NumPy walk of tests/torch_parity counts
+    for them: candidates walked (meta words read), picks, and the
+    kernel's rounds (32-candidate chunks plus picks)."""
     from loam_tpu_torch.ops import features as FT
     from torch_parity import serial_walk, walk_kwargs
 
@@ -858,7 +905,7 @@ def walk_inputs(sweep, cfg):
     cm, fm = FT.walk_meta(curv.reshape(-1, W), gap.reshape(-1, W),
                           counts.reshape(-1), cfg)
     pre = pre.reshape(-1, W)
-    kw = walk_kwargs(cfg, W)
+    kw = walk_kwargs(cfg, W, cfg.corner_scan_k, cfg.flat_scan_k)
     _, need = serial_walk(cm.cpu().numpy(), fm.cpu().numpy(),
                           pre.cpu().numpy(), **kw)
     return cm, fm, pre, kw, need
@@ -2681,6 +2728,149 @@ def rates_phase(dev, card: str, rate5, started5, started20):
     return launches
 
 
+def knob_rows(dev, raw, msk, rate5):
+    """Phase 14's kernel rows, every output compared exactly: the walk at
+    suppress_neighbors REACHES on every ring of phase 13 a's sweeps (W=7200,
+    8 words a lane) and of phase 4's (B=1 x R=208, W=2048; reach 8 the
+    row's own shape); the walk cut at SCAN_K candidates on the same rings;
+    knn_topk_dyn K=5 on row 2's clouds (6000 x 50000 live) at pruned and
+    at full windows (the row's own shape: map_knn_prune=False)."""
+    from loam_tpu_torch import frontend
+    from loam_tpu_torch.ops.cuda import knn_topk as KN
+
+    def rings(sweeps, cfg):
+        r, m = sweeps
+        return walk_inputs(frontend.ingest_sweep(
+            torch.tensor(r, device=dev), torch.tensor(m, device=dev), cfg),
+            cfg)
+
+    cells = (((rate5, rate5_config()), 8), (((raw, msk),
+                                              replay_config("default")), 2))
+    reach, depth = [], []
+    for (sweeps, cfg), words in cells:
+        for n in REACHES[::-1]:
+            ring_set = rings(sweeps, dataclasses.replace(
+                cfg, suppress_neighbors=n))
+            reach.append(walk_shape(ring_set, 1, ring_set[0].shape[0],
+                                    f",reach={n},words={words}"))
+        ring_set = rings(sweeps, dataclasses.replace(
+            cfg, corner_scan_k=SCAN_K, flat_scan_k=SCAN_K))
+        depth.append(walk_shape(ring_set, 1, ring_set[0].shape[0],
+                                f",depth={SCAN_K},words={words}"))
+    rows = [walk_row("select_walk_reach", reach),
+            walk_row("select_walk_depth", depth)]
+
+    rng = np.random.default_rng(SEED)
+    tq, tm = 256, 512
+    q, ref, t_lo, t_hi = sorted_cloud(rng, dev, 1, 8192, 65536, 6000, 50000,
+                                      1.0, tq, tm)
+    full = KN.full_windows(1, 8192, 65536, tq, tm, dev)
+    shapes = [windowed("knn_topk_dyn_full", 5, q, ref, 6000, 50000, t_lo,
+                       t_hi, tq, tm, ",pruned"),
+              windowed("knn_topk_dyn_full", 5, q, ref, 6000, 50000, *full,
+                       tq, tm, ",full", plain_reps=3)]
+    torch.cuda.synchronize()
+    rows.append(dict(name="knn_topk_dyn_full", counter="knn_topk_dyn",
+                     route="cuda", source="loam_tpu_torch/csrc/knn_topk.cu",
+                     replaces="loam_tpu/ops/pallas/knn_topk.py:133",
+                     **{**shapes[-1], "max_abs_err": max(
+                         s["max_abs_err"] for s in shapes)},
+                     other_shapes=shapes[:-1]))
+    return rows
+
+
+def knobs_phase(dev, card: str, raw, msk, rate5, default_outs, oracle):
+    """Phase 14, the selection knobs and the unpruned mapping k-NN: the
+    kernel rows of knob_rows, then phase 4's sweeps replayed strict at
+    each KNOB_MODES entry.  suppress_neighbors=8 and the walks cut at
+    SCAN_K are held to the ground truth (the golden oracle fixes a reach
+    of 5 and walks whole subregions), map_knn_prune=False to the golden
+    oracle (phase 4's), its cadence, and within 1e-4 rad / 1e-3 m of
+    phase 4's strict replay (default_outs: pruning is exact within the
+    1 m gate); every query block of the unpruned replay scans full
+    windows, and no pruned replay's does.  Prints frame 0's feature
+    counts at each reach.  Returns (kernel rows, launch counts)."""
+    from loam_tpu_torch import frontend, metrics, pipeline
+    from loam_tpu_torch.ops.cuda import knn_topk as KN
+    from loam_tpu_torch.ops.features import extract_features
+
+    t_phase = time.perf_counter()
+    rows = knob_rows(dev, raw, msk, rate5)
+    print_rows(rows, card)
+    raw_t = torch.tensor(raw, device=dev)
+    msk_t = torch.tensor(msk, device=dev)
+    base = replay_config("default")
+    feats = {}
+    for n in (base.suppress_neighbors,) + REACHES:
+        cfg = dataclasses.replace(base, suppress_neighbors=n)
+        f = extract_features(frontend.ingest_sweep(raw_t[:1], msk_t[:1],
+                                                   cfg), cfg)
+        feats[n] = [int(getattr(f, c).count().sum())
+                    for c in ("sharp", "less_sharp", "flat")]
+    print(f"knobs: frame 0's sharp, less-sharp and flat points by "
+          f"suppress_neighbors {feats} [{card}]", flush=True)
+
+    gt = cell_poses()[1:, 3:6]
+    launches, failed = {}, []
+    truth_default = metrics.ate_rmse(
+        default_outs.pose_integrated.cpu().numpy()[:, 3:6], gt)
+    real = KN.full_windows
+    for name, (over, held) in KNOB_MODES.items():
+        cfg = dataclasses.replace(base, **over)
+        calls = []
+
+        def counted_windows(*args):
+            calls.append(1)
+            return real(*args)
+
+        def run():
+            calls.clear()     # the warm-up's are not this run's
+            return pipeline.replay_sweeps(raw_t, msk_t, cfg)
+
+        KN.full_windows = counted_windows
+        try:
+            outs, launches[name], seconds = counted_replay(
+                name, *KNOB_PATH,
+                lambda: pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg),
+                run)
+        finally:
+            KN.full_windows = real
+        dyn = launches[name]["knn_topk_dyn"]
+        est = outs.pose_integrated.cpu().numpy()
+        ate_gt = metrics.ate_rmse(est[:, 3:6], gt)
+        line = (f"replay {name}: {FRAMES} frames in {seconds:.3f} s = "
+                f"{FRAMES / seconds:.2f} frames/s; integrated ATE vs ground "
+                f"truth {100 * ate_gt:.4f} cm (phase 4's strict "
+                f"{100 * truth_default:.4f} cm)")
+        ok = np.isfinite(est).all() and len(calls) == (
+            dyn if name == "unpruned" else 0)
+        if held == "truth":
+            ok &= ate_gt < ATE_GATE
+        else:
+            ate = metrics.ate_rmse(est[:, 3:6], oracle["integrated"][:, 3:6])
+            cadence = np.array_equal(outs.mapped.cpu().numpy(),
+                                     oracle["mapped"])
+            rot, trans = pose_gap(
+                {n: getattr(outs, n).cpu().numpy() for n in POSE_NAMES},
+                {n: getattr(default_outs, n).cpu().numpy()
+                 for n in POSE_NAMES})
+            line += (f", vs golden oracle {100 * ate:.4f} cm; mapping "
+                     f"cadence equal: {cadence}; largest gap to phase 4's "
+                     f"strict replay {rot:.3g} rad, {trans:.3g} m")
+            ok &= (ate < ATE_GATE and cadence and rot < BATCH_ROT
+                   and trans < BATCH_TRANS)
+        line += (f"; full-window k-NN calls {len(calls)} of {dyn} "
+                 f"launches; launches {launches[name]}")
+        print(f"{line} [{card}]", flush=True)
+        if not ok:
+            failed.append(line)
+    print(f"knobs phase: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    if failed:
+        raise AssertionError(f"phase 14 failed its gates: {failed}")
+    return rows, launches
+
+
 def fetch(url: str) -> bytes:
     """GET over loopback."""
     import urllib.request
@@ -2795,6 +2985,10 @@ def main() -> int:
     launches.update(long_phase(dev, card))
     launches.update(dense_phase(dev, card, dense))
     launches.update(rates_phase(dev, card, rate5, *rates))
+    knob_kernels, knob_launches = knobs_phase(dev, card, raw, msk, rate5,
+                                              replays["default"], oracle)
+    rows += knob_kernels
+    launches.update(knob_launches)
 
     # the windowed k-NN runs at k=5 in the strict replays, the entry and
     # the online engine only, at k=8 in the hybrid ones (phase 10's
@@ -2806,8 +3000,15 @@ def main() -> int:
                "scale-out b", "scale-out c", "long hybrid")
     online = [n for n in launches if n.startswith("online")]
     dense = list(DENSE_MODES) + list(RATE5_MODES)
+    # phase 14's walks and unpruned k-NN have rows of their own
+    own_row = {"select_walk_reach": ("reach 8", "select_walk"),
+               "select_walk_depth": ("scan 10", "select_walk"),
+               "knn_topk_dyn_full": ("unpruned", "knn_topk_dyn")}
     for r in rows:
-        if r["name"] == "knn_topk_dyn":
+        if r["name"] in own_row:
+            run, counter = own_row[r["name"]]
+            r["launches"] = launches[run][counter]
+        elif r["name"] == "knn_topk_dyn":
             r["launches"] = sum(
                 launches[n]["knn_topk_dyn"] for n in
                 ["default", "entry", "long strict", "long split",
@@ -2825,7 +3026,7 @@ def main() -> int:
             r["launches"] = sum(launches[n]["select_walk"] for n in dense)
         elif r["name"] == "select_walk":
             r["launches"] = sum(c["select_walk"] for n, c in launches.items()
-                                if n not in dense)
+                                if n not in dense and n not in KNOB_MODES)
         elif r["name"] == "kselect_dense":
             r["launches"] = sum(launches[n]["knn_select"]
                                 for n in ("dense cells", "5 Hz cells"))

@@ -45,8 +45,11 @@
 // labels its last pick and stops before suppressing it.  A walk ends at
 // step `lim` (the corner_scan_k / flat_scan_k depth, else the subregion).
 //
-// Meta word: bits 0-12 ring index, 13-15 upward reach, 16-18 downward
-// reach, 19 in-span (and ring has >= 12 points), 20 curvature qualifies.
+// Meta word: bits 0-12 ring index, 13-17 upward reach, 18-22 downward
+// reach, 23 in-span (and ring has >= 12 points), 24 curvature qualifies.
+// Each reach is at most 16 (config suppress_neighbors), so a pick's span
+// of at most 33 bits lies in two words of the picked bit-field: mask0 and
+// mask1 below.
 // Output per ring: [sharp | less_sharp | flat | picked] bit-fields,
 // wb = ceil(W / 32) uint32 words each, stored as int64; a width that is
 // not a multiple of 32 leaves the bits past W - 1 of the last word 0 (no
@@ -64,10 +67,11 @@ constexpr int kMaxW = 8192;  // 13-bit ring indices, 8 words a lane
 
 // the meta word's fields (ops/cuda/select_walk.py packs them)
 constexpr int kIndMask = (1 << 13) - 1;
+constexpr int kReachMask = (1 << 5) - 1;  // reaches up to 16 (two words)
 constexpr int kUpShift = 13;
-constexpr int kDnShift = 16;
-constexpr int kValidShift = 19;
-constexpr int kQualShift = 20;
+constexpr int kDnShift = 18;
+constexpr int kValidShift = 23;
+constexpr int kQualShift = 24;
 
 // bits [lo, hi] of word w (lo <= hi, both within w's 32 or straddling)
 __device__ __forceinline__ uint32_t range_bits(int lo, int hi, int w) {
@@ -125,8 +129,8 @@ __device__ __forceinline__ void walk(const int32_t* __restrict__ meta,
         ((m >> kValidShift) & 1) == 0 || ((m >> kQualShift) & 1) == 0;
     // this candidate's suppression range, clipped at the ring ends, and
     // its one or two words of the picked bit-field
-    const int lo = max(ind - ((m >> kDnShift) & 7), 0);
-    const int hi = min(ind + ((m >> kUpShift) & 7), last);
+    const int lo = max(ind - ((m >> kDnShift) & kReachMask), 0);
+    const int hi = min(ind + ((m >> kUpShift) & kReachMask), last);
     const uint32_t mask0 = range_bits(lo, hi, lo >> 5);
     const uint32_t mask1 = (hi >> 5) != (lo >> 5)
                                ? range_bits(lo, hi, hi >> 5) : 0u;

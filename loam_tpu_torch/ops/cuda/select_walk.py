@@ -6,11 +6,14 @@ int32 packed walk metadata in walk order (pack_walk_meta), picked0
 (B, R, ceil(W/32)) int64 holding uint32 bit-field words, 1 <= W <=
 MAX_W.  Returns (sharp, less_sharp, flat, picked) bit-fields, each
 (B, R, ceil(W/32)) int64; the bits past W - 1 of the last word are 0.
-corner_k / flat_k cut each corner / flat walk at that many candidates
-(config corner_scan_k / flat_scan_k; 0 or less walks the whole
-subregion).  The wrapper counts its kernel launches in
-``select_walk.launches``, and in ``select_walk.by_words`` by the words a
-lane of the kernel instance held (2, 4 or 8), as the C entry reports.
+A candidate's up and down reaches are each at most MAX_REACH: a pick's
+suppression span then covers at most 33 bits, two words of the picked
+bit-field, which is what the kernel marks.  corner_k / flat_k cut each
+corner / flat walk at that many candidates (config corner_scan_k /
+flat_scan_k; 0 or less walks the whole subregion).  The wrapper counts
+its kernel launches in ``select_walk.launches``, and in
+``select_walk.by_words`` by the words a lane of the kernel instance held
+(2, 4 or 8), as the C entry reports.
 """
 
 from __future__ import annotations
@@ -24,11 +27,16 @@ from . import _build
 # ring indices in 13 bits, 8 words a kernel lane (select_walk_max_w);
 # here for the configuration check, which runs without the library
 MAX_W = 8192
+# the largest up or down suppression reach (config suppress_neighbors)
+MAX_REACH = 16
+# the meta word: bits 0-12 ring index, 13-17 up reach, 18-22 down reach,
+# 23 in-span, 24 curvature qualifies
 _IND_MASK = (1 << 13) - 1
+_REACH_MASK = (1 << 5) - 1
 _UP_SHIFT = 13
-_DN_SHIFT = 16
-_VALID_SHIFT = 19
-_QUAL_SHIFT = 20
+_DN_SHIFT = 18
+_VALID_SHIFT = 23
+_QUAL_SHIFT = 24
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 10
              + (ctypes.POINTER(ctypes.c_int), ctypes.c_void_p))
 
@@ -39,7 +47,8 @@ def walk_limit(depth: int, subw: int) -> int:
 
 
 def pack_walk_meta(idxc, valid, qual, up_reach, down_reach):
-    """Pack per-candidate walk metadata (already in walk order) into int32."""
+    """Pack per-candidate walk metadata (already in walk order) into int32;
+    each reach in [0, MAX_REACH]."""
     return (
         idxc.to(torch.int32)
         | (up_reach.to(torch.int32) << _UP_SHIFT)
@@ -47,6 +56,15 @@ def pack_walk_meta(idxc, valid, qual, up_reach, down_reach):
         | (valid.to(torch.int32) << _VALID_SHIFT)
         | (qual.to(torch.int32) << _QUAL_SHIFT)
     )
+
+
+def unpack_walk_meta(m):
+    """The fields of pack_walk_meta: (index, up reach, down reach, valid,
+    qual), the last two bool."""
+    return (m & _IND_MASK, (m >> _UP_SHIFT) & _REACH_MASK,
+            (m >> _DN_SHIFT) & _REACH_MASK,
+            ((m >> _VALID_SHIFT) & 1).bool(),
+            ((m >> _QUAL_SHIFT) & 1).bool())
 
 
 def words_for(W: int) -> int:
@@ -91,11 +109,6 @@ def select_walk_plain(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
     iota = torch.arange(W, device=dev)
     rows = torch.arange(n, device=dev)
 
-    def unpack(m):
-        return (m & _IND_MASK, (m >> _UP_SHIFT) & 7, (m >> _DN_SHIFT) & 7,
-                ((m >> _VALID_SHIFT) & 1).bool(),
-                ((m >> _QUAL_SHIFT) & 1).bool())
-
     def mark(field, ind, do):
         field[rows, ind] |= do
 
@@ -111,7 +124,8 @@ def select_walk_plain(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
             active = torch.ones(n, dtype=torch.bool, device=dev)
             for t in range(walk_limit(corner_k if corner else flat_k,
                                       subw)):
-                ind, up, dn, valid, qual = unpack(meta[:, base + t].long())
+                ind, up, dn, valid, qual = unpack_walk_meta(
+                    meta[:, base + t].long())
                 qualify = active & valid & qual & ~picked[rows, ind]
                 cnt = cnt + qualify.to(torch.int32)
                 if corner:

@@ -136,7 +136,10 @@ def _suppress_reach(gap_sq, gap_thr, n_sup):
 def walk_meta(curv, gap_sq, n, cfg: LoamConfig):
     """Pack the walk's data-independent inputs for R rings: curv/gap_sq
     (R, W), n (R,).  Returns (corner_meta, flat_meta), (R, n_sub*SUBW)
-    int32, following features.select_rings_walk."""
+    int32, following features.select_rings_walk.  Refuses what the walk
+    cannot take (check_selection_config) rather than pack a reach that
+    overflows its field."""
+    check_selection_config(cfg)
     R, W = curv.shape
     n_sub = cfg.n_subregions
     SUBW = cfg.ring_width // n_sub + 8
@@ -224,7 +227,9 @@ def _compact(xyz, rel, mask, cap):
 
 def check_selection_config(cfg: LoamConfig) -> None:
     """The port runs one selection formulation: the walk, whose labels
-    select_rings_argmax shares, so select_argmax=True runs it too."""
+    select_rings_argmax shares, so select_argmax=True runs it too.  Refuses
+    the walk's limits: rings past MAX_W points, a suppression reach past
+    MAX_REACH."""
     if cfg.select_argmax and (cfg.corner_scan_k != 0
                               or cfg.flat_scan_k != 0):
         # the JAX package asserts the same (features.extract_features)
@@ -236,6 +241,12 @@ def check_selection_config(cfg: LoamConfig) -> None:
             f"ring_width={cfg.ring_width}: the selection walk packs ring "
             f"indices in 13 bits and holds 8 bit-field words a kernel lane, "
             f"so rings take at most {SW.MAX_W} points")
+    if cfg.suppress_neighbors > SW.MAX_REACH:
+        raise ValueError(
+            f"suppress_neighbors={cfg.suppress_neighbors}: the selection "
+            f"walk marks a pick's suppression span in at most two 32-bit "
+            f"words, so it suppresses at most {SW.MAX_REACH} neighbours a "
+            f"side")
 
 
 def selection_inputs(sweep: Sweep, cfg: LoamConfig):

@@ -170,10 +170,12 @@ class LiveServer:
         self._registered_cap = registered_cap
         self._trail_cap = trail_cap
         self._mapping_mod = mapping_mod
+        # -inf: the first poll fetches, whatever time.monotonic() reads
+        # (seconds since boot on Linux, under surround_every after a boot)
         self._surround_cache: list = []
-        self._surround_t = 0.0
+        self._surround_t = float("-inf")
         self._registered_cache: list = []
-        self._registered_t = 0.0
+        self._registered_t = float("-inf")
         self._surround_lock = threading.Lock()
         self._seq = 0
 

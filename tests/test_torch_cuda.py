@@ -366,6 +366,51 @@ def test_select_walk_kernel_matches_plain(cuda, B, R, W, corner_k, flat_k):
     assert int(out[0].count_nonzero()) > 0 and int(out[2].count_nonzero()) > 0
 
 
+@pytest.mark.parametrize("W,depth", [(W, d) for W in (512, 2048, 3600, 7200,
+                                                    8192) for d in (0, 10)])
+def test_select_walk_kernel_matches_plain_at_the_largest_reach(cuda, W, depth):
+    """Reaches up to select_walk.MAX_REACH (suppress_neighbors 16): a
+    pick's span of 33 bits across two words of the picked bit-field, on
+    the constructed meta of torch_parity.walk_meta_case, at the 2, 4 and
+    8 words a lane, the whole subregion and a depth of 10."""
+    B, R = 1, 208
+    cm, fm, p0, _ = walk_meta_case(B, R, W, seed=W + depth,
+                                   reach=SW.MAX_REACH)
+    kw = walk_kwargs(LoamConfig(), W, depth, depth)
+    cm, fm = (torch.tensor(a, device=cuda) for a in (cm, fm))
+    p0 = SW.pack_bits(torch.tensor(p0, device=cuda))
+    out = SW.select_walk(cm, fm, p0, **kw)
+    plain = SW.select_walk_plain(cm, fm, p0, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(out[0].count_nonzero()) > 0 and int(out[2].count_nonzero()) > 0
+
+
+@pytest.mark.parametrize("reach", [8, 16])
+def test_select_rings_on_card_equals_cpu_at_reach(cuda, reach):
+    """Feature labels of a sweep at suppress_neighbors 8 and 16: the walk
+    kernel on the card gives the CPU's labels bit for bit."""
+    from loam_tpu_torch import frontend
+    from loam_tpu_torch.ops import features as FT
+
+    raw, msk, _ = make_sweeps(1)
+    cfg = dataclasses.replace(small_config(), suppress_neighbors=reach)
+    labels = []
+    for dev in ("cpu", cuda):
+        sweep = frontend.ingest_sweep(torch.tensor(raw[0], device=dev),
+                                      torch.tensor(msk[0], device=dev), cfg)
+        W = cfg.ring_width
+        curv, gap, pre, counts = FT.selection_inputs(sweep, cfg)
+        before = SW.select_walk.launches
+        lab, _ = FT.select_rings(curv.reshape(-1, W), gap.reshape(-1, W),
+                                 pre.reshape(-1, W), counts.reshape(-1), cfg)
+        assert SW.select_walk.launches == before + (dev != "cpu")
+        labels.append(lab.cpu())
+    assert torch.equal(labels[0], labels[1])
+    assert int((labels[0] == 2).sum()) > 0
+
+
 @pytest.mark.parametrize("Q,C,k,frac", [(300, 864, 24, 0.6), (1000, 24, 5, 0.7),
                                         (1000, 8, 5, 0.5), (37, 130, 3, 0.1),
                                         (5, 1024, 32, 0.9),

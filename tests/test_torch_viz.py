@@ -201,14 +201,26 @@ def test_live_state_reports_the_queues_drops():
     assert s["stats"] == {"odom_frames": 5, "map_frames": 2, "dropped": 7}
 
 
-def test_live_registered_waits_for_a_cloud_before_rate_limiting():
+def _clock(monkeypatch, *readings):
+    """time.monotonic in viz_live reads `readings` in turn, small values
+    as on a machine booted seconds ago."""
+    import loam_tpu_torch.viz_live as VL
+
+    it = iter(readings)
+    monkeypatch.setattr(VL.time, "monotonic", lambda: next(it))
+
+
+def test_live_registered_waits_for_a_cloud_before_rate_limiting(monkeypatch):
     """A poll that finds no registered cloud yet does not start the rate
     limit: the next poll, well inside surround_every, fetches the cloud
-    that has arrived; after that the cache holds until the limit."""
+    that has arrived; after that the cache holds until the limit.  The
+    clock reads under surround_every from the first poll on, as on a
+    machine booted less than surround_every ago."""
     from loam_tpu_torch.runtime.streaming import EngineStats
 
     eng = _StubEngine(EngineStats())
     live = LiveServer(eng, port=0, surround_every=3600.0)
+    _clock(monkeypatch, 5.0, 6.0, 7.0)
     try:
         assert live._registered() == []
         eng.registered = dataclasses.make_dataclass(
@@ -220,3 +232,37 @@ def test_live_registered_waits_for_a_cloud_before_rate_limiting():
         assert live._registered() == [[1.0, 2.0, 3.0]]
     finally:
         live._httpd.server_close()
+
+
+def test_live_surround_fetches_on_the_first_poll(monkeypatch):
+    """The first poll extracts the surround cloud of a map that exists,
+    whatever the clock reads (here under surround_every, as on a machine
+    booted less than surround_every ago); the next poll inside the limit
+    returns the cache."""
+    from loam_tpu_torch.runtime.streaming import EngineStats
+
+    class Mapped(_StubEngine):
+        def map_state_snapshot(self):
+            return "map", None
+
+    cloud = dataclasses.make_dataclass("Cloud", ["xyz", "mask"])(
+        torch.tensor([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]]),
+        torch.tensor([False, True]))
+    calls = []
+
+    class Mapping:
+        @staticmethod
+        def surround_cloud(map_state, cap):
+            calls.append((map_state, cap))
+            return cloud
+
+    live = LiveServer(Mapped(EngineStats()), port=0, surround_every=3600.0,
+                      surround_cap=7)
+    live._mapping_mod = Mapping
+    _clock(monkeypatch, 5.0, 6.0)
+    try:
+        assert live._surround() == [[4.0, 5.0, 6.0]]
+        assert live._surround() == [[4.0, 5.0, 6.0]]
+    finally:
+        live._httpd.server_close()
+    assert calls == [("map", 7)]

@@ -72,7 +72,8 @@ WIDE_K = (
 # ValueError that names the limit: (test id, config changes, pattern).
 # The cell path's re-rank at k > C, which loam_tpu's lax.top_k refuses
 # too, and the limits of the kernels: rings of more than 8192 points,
-# an exact k past the widest warp queue, C past kselect's MAX_C
+# an exact k past the widest warp queue, C past kselect's MAX_C, a
+# suppression reach past the walk's two words a pick
 REFUSED = (
     ("cells_rerank", dict(map_exact_knn=False, knn_candidates=4),
      r"map_knn=5 from C=knn_candidates=4 .*1 <= k <= C <= 17880"),
@@ -81,6 +82,8 @@ REFUSED = (
     ("exact_k", dict(map_knn=1025), r"map_knn=1025 .*1 <= k <= 1024"),
     ("cells_row", dict(map_exact_knn=False, search_bucket_cap=663),
      r"C=17901 .*1 <= k <= C <= 17880"),
+    ("suppress", dict(suppress_neighbors=17),
+     r"suppress_neighbors=17: .*at most 16 neighbours a side"),
 )
 REFUSED_IDS = [case[0] for case in REFUSED]
 
@@ -243,7 +246,8 @@ def walk_kwargs(cfg, W: int, corner_k: int = 0, flat_k: int = 0) -> dict:
                 flat_k=flat_k)
 
 
-def walk_meta_case(B: int, R: int, W: int, n_sub: int = 6, seed: int = 0):
+def walk_meta_case(B: int, R: int, W: int, n_sub: int = 6, seed: int = 0,
+                   reach: int = 5):
     """Constructed walk inputs for B x R rings of width W in the layout of
     features.walk_meta (subregion j walks indices j*(W/n_sub) + [0, subw),
     those past W-1 clamped to it and not in-span, reaches clipped at the
@@ -255,11 +259,11 @@ def walk_meta_case(B: int, R: int, W: int, n_sub: int = 6, seed: int = 0):
                    order: 80+ picked candidates before the first pick;
       stop_first   each walk's first (flat: second) candidate stops it;
       short_ring   no in-span candidate (a ring under 12 points);
-      edges        reaches of 5 (across words and into the next
+      edges        reaches of `reach` (across words and into the next
                    subregion), index W-1 first in the last subregion's
                    walks, bit-31 candidates next, bit 31 of every other
                    word pre-picked;
-      random       random stops, reaches and pre-picks.
+      random       random stops, reaches up to `reach` and pre-picks.
     Returns NumPy corner_meta, flat_meta (B, R, n_sub*subw) int32, picked0
     (B, R, W) bool and the kind index of each ring (B, R)."""
     rng = np.random.default_rng(seed)
@@ -297,10 +301,11 @@ def walk_meta_case(B: int, R: int, W: int, n_sub: int = 6, seed: int = 0):
                 elif kind == "random":
                     stop = rng.integers(0, subw + 1)
                     (qual if stop % 2 else valid)[stop:] = False
-                reach = 5 if kind == "edges" else 0 if kind == "overflow" \
-                    else None
-                up, dn = (np.full(subw, reach) if reach is not None
-                          else rng.integers(0, 6, subw) for _ in range(2))
+                fixed = reach if kind == "edges" else 0 \
+                    if kind == "overflow" else None
+                up, dn = (np.full(subw, fixed) if fixed is not None
+                          else rng.integers(0, reach + 1, subw)
+                          for _ in range(2))
                 up, dn = np.minimum(up, W - 1 - ind), np.minimum(dn, ind)
                 metas[s, g, j] = SW.pack_walk_meta(*(
                     torch.tensor(a) for a in (ind, valid, qual, up, dn)
@@ -334,8 +339,8 @@ def serial_walk(corner_meta, flat_meta, picked0, *, n_sub, subw, W,
                 for m in meta[:subw if depth <= 0 else min(depth, subw)]:
                     steps += 1
                     ind = m & SW._IND_MASK
-                    up = (m >> SW._UP_SHIFT) & 7
-                    dn = (m >> SW._DN_SHIFT) & 7
+                    up = (m >> SW._UP_SHIFT) & SW._REACH_MASK
+                    dn = (m >> SW._DN_SHIFT) & SW._REACH_MASK
                     if not ((m >> SW._VALID_SHIFT) & 1
                             and (m >> SW._QUAL_SHIFT) & 1):
                         break                     # processed, then stop
