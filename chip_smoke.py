@@ -163,7 +163,21 @@ Phases, each of which raises (non-zero exit) on failure:
      within 5 cm of the golden oracle on its cadence and within 1e-4 rad
      / 1e-3 m of phase 4's strict replay, every query block of its k-NN
      on full windows.  Prints frame 0's feature counts at each reach and
-     the phase's seconds.
+     the phase's seconds;
+ 15. the mapping cadence at skip_frame_num != 1 (the odometry counter
+     starts at skip_frame_num, as the C++'s; loam_tpu's starts at 1): (a)
+     phase 13 b's 20 Hz sweeps strict at skip 3 (mapping at 5 Hz), mapped
+     on pipeline.mapping_frame's frames, knn_topk_dyn launched inside
+     mapping frames only, integrated ATE < 5 cm against the ground truth
+     (the golden oracle fixes skipFrameNum at 1); (b) phase 4's sweeps at
+     skip 2 in its three modes, each on the cadence and within 5 cm of
+     the ground truth, printed beside phase 4's and the oracle's own
+     figures against it; (c) batched_replay of (a)'s recipe and a second
+     world at B = 2, each scenario within 1e-4 rad / 1e-3 m of its
+     single replay on the cadence, and replay_features_cadenced of (a)'s
+     first 25 sweeps against (a); (d) the streaming engine paced over
+     (a)'s sweeps on its 0.05 s clock, equal to (a) by phase 9's rule.
+     Prints the phase's seconds.
 The kernel rows carry the batch's shapes too (B=8 scenarios), each
 compared bit for bit; odom_corr_untruncated is odom_corr's walk without
 the upward-scan truncation, at the corner and surf shapes, its launches
@@ -386,6 +400,12 @@ KNOB_MODES = {
     "scan 10": (dict(corner_scan_k=SCAN_K, flat_scan_k=SCAN_K), "truth"),
     "unpruned": (dict(map_knn_prune=False), "oracle"),
 }
+# the mapping cadence at skip_frame_num != 1 (phase 15): phase 13 b's
+# 20 Hz sweeps mapped every fourth sweep (5 Hz, as the default maps 10 Hz
+# sweeps), and phase 4's sweeps mapped every third
+CADENCE_20HZ_SKIP = 3
+CADENCE_SKIP = 2
+CADENCE_SEED = 22            # (c)'s second 20 Hz scenario
 POSE_NAMES = ("pose_odom", "pose_aft", "pose_integrated")
 KERNELS = ("knn_topk", "knn_topk_dyn", "odom_corr", "select_walk",
            "knn_select")
@@ -522,15 +542,15 @@ def cell_poses(frames: int = FRAMES, scan_period: float = 0.1):
 
 
 def make_sweeps(frames: int = FRAMES, n_azimuth: int = N_AZIMUTH,
-                scan_period: float = 0.1):
-    """The default cell's recipe (NumPy): seed 21, cell_poses, a sweep
-    every scan_period seconds."""
+                scan_period: float = 0.1, seed: int = SEED):
+    """The default cell's recipe (NumPy): seed 21 (the world and each
+    sweep's noise), cell_poses, a sweep every scan_period seconds."""
     from loam_tpu_torch.io import synth
 
-    world = synth.make_world(seed=SEED)
+    world = synth.make_world(seed=seed)
     poses = cell_poses(frames, scan_period)
     sweeps = [synth.simulate_sweep(world, poses[k], poses[k + 1],
-                                   n_azimuth=n_azimuth, seed=SEED + k)
+                                   n_azimuth=n_azimuth, seed=seed + k)
               for k in range(frames)]
     raw = np.stack([s[0] for s in sweeps]).astype(np.float32)
     return raw, np.stack([s[1] for s in sweeps])
@@ -2871,6 +2891,210 @@ def knobs_phase(dev, card: str, raw, msk, rate5, default_outs, oracle):
     return rows, launches
 
 
+def cadence_replay(name, cfg, raw_t, msk_t, required, forbidden):
+    """counted_replay of replay_sweeps at cfg, with the frames at which
+    mapping_step ran and the knn_topk_dyn launches inside and outside
+    them recorded (frames counted by odometry_step calls).  Returns
+    (outputs, launch counts, seconds, {mapping frame: its knn_topk_dyn
+    launches}, knn_topk_dyn launches outside mapping frames)."""
+    from loam_tpu_torch import mapping, odometry, pipeline
+    from loam_tpu_torch.ops.cuda import knn_topk as KN
+
+    frames, inside = [], {}
+    odom_step, map_step = odometry.odometry_step, mapping.mapping_step
+
+    def counted_odometry(*args, **kw):
+        frames.append(len(frames))
+        return odom_step(*args, **kw)
+
+    def counted_mapping(*args, **kw):
+        before = KN.knn_topk_dyn.launches
+        out = map_step(*args, **kw)
+        inside[frames[-1]] = KN.knn_topk_dyn.launches - before
+        return out
+
+    def run():
+        frames.clear()        # the warm-up's are not this run's
+        inside.clear()
+        return pipeline.replay_sweeps(raw_t, msk_t, cfg)
+
+    odometry.odometry_step, mapping.mapping_step = (counted_odometry,
+                                                    counted_mapping)
+    try:
+        outs, counts, seconds = counted_replay(
+            name, required, forbidden,
+            lambda: pipeline.replay_sweeps(raw_t[:3], msk_t[:3], cfg), run)
+    finally:
+        odometry.odometry_step, mapping.mapping_step = odom_step, map_step
+    return (outs, counts, seconds, dict(inside),
+            counts["knn_topk_dyn"] - sum(inside.values()))
+
+
+def cadence_phase(dev, card: str, raw, msk, replays, oracle,
+                  rate20_launches):
+    """Phase 15, the mapping cadence at skip_frame_num != 1 (the counter
+    starts at skip_frame_num, as the C++'s does; loam_tpu's starts at 1).
+    (a) rate20_sweeps strict at skip 3, mapping at 5 Hz: mapped equal to
+    pipeline.mapping_frame, knn_topk_dyn launched inside mapping frames
+    only, integrated ATE against the ground truth < ATE_GATE (the oracle
+    fixes skipFrameNum at 1); (b) phase 4's sweeps at skip 2 in its three
+    modes, each on the cadence and within ATE_GATE of the ground truth,
+    beside phase 4's and the oracle's own figures against it; (c)
+    batched_replay of (a)'s recipe and a second world (CADENCE_SEED) at
+    B = 2 against the two singles within BATCH_ROT / BATCH_TRANS, and
+    replay_features_cadenced of (a)'s first 25 sweeps against (a); (d)
+    the streaming engine paced over (a)'s sweeps on its 0.05 s clock,
+    held to (a) by the engine's integration rule.  rate20_launches: phase
+    13 b's counts at skip 1 on the same sweeps.  Returns the launch
+    counts of every counted run."""
+    from loam_tpu_torch import frontend, metrics, pipeline
+    from loam_tpu_torch.ops.features import extract_features
+    from loam_tpu_torch.parallel.replay import batched_replay
+    from loam_tpu_torch.runtime.streaming import StreamingEngine
+    from torch_parity import online_rule_replay, paced_engine_run
+
+    t_phase = time.perf_counter()
+    launches, failed = {}, []
+
+    def cadence(outs, cfg):
+        frames = outs.mapped.shape[-1]
+        want = np.array([pipeline.mapping_frame(k, cfg)
+                         for k in range(frames)])
+        return np.array_equal(outs.mapped.cpu().numpy(), want), want
+
+    # (a) 1200 RPM mapped at 5 Hz
+    raw20, msk20 = rate20_sweeps()
+    cfg20 = dataclasses.replace(rate20_config(),
+                                skip_frame_num=CADENCE_20HZ_SKIP)
+    r20_t, m20_t = (torch.tensor(a, device=dev) for a in (raw20, msk20))
+    outs20, launches["cadence 20 Hz"], seconds, inside, outside = \
+        cadence_replay("cadence 20 Hz", cfg20, r20_t, m20_t, *KNOB_PATH)
+    on_cadence, want = cadence(outs20, cfg20)
+    gt20 = cell_poses(RATE20_F, RATE20_T)[1:, 3:6]
+    est = outs20.pose_integrated.cpu().numpy()
+    ate = metrics.ate_rmse(est[:, 3:6], gt20)
+    skip1 = rate20_launches["knn_topk_dyn"]
+    line = (f"cadence 20 Hz: {RATE20_F} sweeps at skip_frame_num "
+            f"{CADENCE_20HZ_SKIP} in {seconds:.3f} s = "
+            f"{RATE20_F / seconds:.2f} frames/s; mapped at frames "
+            f"{np.flatnonzero(outs20.mapped.cpu().numpy()).tolist()} "
+            f"(mapping_frame's: {on_cadence}); integrated ATE vs ground "
+            f"truth {100 * ate:.4f} cm; knn_topk_dyn launches by mapping "
+            f"frame {inside}, outside them {outside}, "
+            f"{launches['cadence 20 Hz']['knn_topk_dyn']} in all against "
+            f"{skip1} at skip 1 (phase 13 b); launches "
+            f"{launches['cadence 20 Hz']}")
+    print(f"{line} [{card}]", flush=True)
+    if not (on_cadence and outside == 0 and sorted(inside) ==
+            np.flatnonzero(want).tolist() and np.isfinite(est).all()
+            and ate < ATE_GATE):
+        failed.append(line)
+
+    # (b) the default cell mapped every third sweep, in phase 4's modes
+    gt = cell_poses()[1:, 3:6]
+    raw_t, msk_t = (torch.tensor(a, device=dev) for a in (raw, msk))
+    truth_oracle = metrics.ate_rmse(oracle["integrated"][:, 3:6], gt)
+    for mode, (over, required, forbidden) in REPLAYS.items():
+        cfg = dataclasses.replace(replay_config(mode),
+                                  skip_frame_num=CADENCE_SKIP)
+        name = f"cadence {mode}"
+        outs, launches[name], seconds, inside, outside = cadence_replay(
+            name, cfg, raw_t, msk_t, required, forbidden)
+        on_cadence, _ = cadence(outs, cfg)
+        est = outs.pose_integrated.cpu().numpy()
+        ate = metrics.ate_rmse(est[:, 3:6], gt)
+        skip1 = metrics.ate_rmse(
+            replays[mode].pose_integrated.cpu().numpy()[:, 3:6], gt)
+        line = (f"cadence {mode}: {FRAMES} sweeps at skip_frame_num "
+                f"{CADENCE_SKIP} in {seconds:.3f} s = "
+                f"{FRAMES / seconds:.2f} frames/s; mapped at frames "
+                f"{np.flatnonzero(outs.mapped.cpu().numpy()).tolist()} "
+                f"(mapping_frame's: {on_cadence}); integrated ATE vs "
+                f"ground truth {100 * ate:.4f} cm (phase 4's at skip 1 "
+                f"{100 * skip1:.4f} cm, the golden oracle's "
+                f"{100 * truth_oracle:.4f} cm); knn_topk_dyn outside "
+                f"mapping frames {outside}; launches {launches[name]}")
+        print(f"{line} [{card}]", flush=True)
+        if not (on_cadence and outside == 0 and np.isfinite(est).all()
+                and ate < ATE_GATE):
+            failed.append(line)
+
+    # (c) two 20 Hz scenarios in lockstep, and the static cadence
+    raw_b, msk_b = make_sweeps(RATE20_F, RATE20_AZIMUTH, RATE20_T,
+                               CADENCE_SEED)
+    braw, bmsk = np.stack([raw20, raw_b]), np.stack([msk20, msk_b])
+    batch, launches["cadence batch"], seconds = counted_replay(
+        "cadence batch", *KNOB_PATH,
+        lambda: batched_replay(braw[:, :3], bmsk[:, :3], cfg20, dev),
+        lambda: batched_replay(braw, bmsk, cfg20, dev))
+    second = pipeline.replay_sweeps(raw_b, msk_b, cfg20, device=dev)
+    gaps, same = [], True
+    for b, single in enumerate((outs20, second)):
+        same &= torch.equal(batch.mapped[b], single.mapped)
+        gaps.append(pose_gap(
+            {n: getattr(batch, n)[b].cpu().numpy() for n in POSE_NAMES},
+            {n: getattr(single, n).cpu().numpy() for n in POSE_NAMES}))
+    rot, trans = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    F = 1 + (RATE20_F - 1) // (CADENCE_20HZ_SKIP + 1) * (
+        CADENCE_20HZ_SKIP + 1)
+    feats = extract_features(frontend.ingest_sweep(r20_t[:F], m20_t[:F],
+                                                   cfg20), cfg20)
+    static, _ = pipeline.replay_features_cadenced(feats, cfg20)
+    srot, strans = pose_gap(
+        {n: getattr(static, n).cpu().numpy() for n in POSE_NAMES},
+        {n: getattr(outs20, n)[:F].cpu().numpy() for n in POSE_NAMES})
+    sbits = all(torch.equal(getattr(static, n), getattr(outs20, n)[:F])
+                for n in POSE_NAMES + ("mapped",))
+    scadence = torch.equal(static.mapped, outs20.mapped[:F])
+    line = (f"cadence batch: B=2 x {RATE20_F} sweeps at 20 Hz, skip "
+            f"{CADENCE_20HZ_SKIP}, in {seconds:.3f} s = "
+            f"{2 * RATE20_F / seconds:.2f} frames/s; largest gap to the "
+            f"singles {rot:.3g} rad, {trans:.3g} m, same cadence {same}; "
+            f"replay_features_cadenced of {F} sweeps vs (a): {srot:.3g} "
+            f"rad, {strans:.3g} m, bit-equal {sbits}; launches "
+            f"{launches['cadence batch']}")
+    print(f"{line} [{card}]", flush=True)
+    if not (same and rot < BATCH_ROT and trans < BATCH_TRANS and scadence
+            and srot < BATCH_ROT and strans < BATCH_TRANS):
+        failed.append(line)
+
+    # (d) the streaming engine over (a)'s sweeps on its 0.05 s clock
+    def run_d():
+        eng = StreamingEngine(cfg20, device=dev)
+        eng.start()
+        try:
+            return paced_engine_run(eng, raw20, msk20), eng._sweep_clock
+        finally:
+            eng.stop()
+
+    ((odom, aft, integrated), clock), launches["cadence online"], secs = \
+        counted_replay("cadence online", ONLINE_PATH, ("knn_select",),
+                       lambda: None, run_d)
+    ref, online = online_rule_replay(raw20, msk20, cfg20, dev)
+    same = all(torch.equal(getattr(ref, n), getattr(outs20, n))
+               for n in POSE_NAMES + ("mapped",))
+    gaps = [np.abs(a.astype(np.float64) - b.cpu().numpy())
+            for a, b in ((odom, ref.pose_odom), (aft, ref.pose_aft),
+                         (integrated, online))]
+    rot = max(float(g[:, :3].max()) for g in gaps)
+    trans = max(float(g[:, 3:].max()) for g in gaps)
+    line = (f"cadence online: {RATE20_F} sweeps at skip "
+            f"{CADENCE_20HZ_SKIP} in {secs:.3f} s = {RATE20_F / secs:.2f} "
+            f"frames/s with a drain after each, the engine's clock at "
+            f"{clock:.6f} s; largest gap to (a) by the integration rule "
+            f"{rot:.3g} rad, {trans:.3g} m (the stepwise replay equals "
+            f"(a): {same}); launches {launches['cadence online']}")
+    print(f"{line} [{card}]", flush=True)
+    if not (rot < BATCH_ROT and trans < BATCH_TRANS and same
+            and abs(clock - RATE20_F * RATE20_T) < 1e-9):
+        failed.append(line)
+    print(f"cadence phase: {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    if failed:
+        raise AssertionError(f"phase 15 failed its gates: {failed}")
+    return launches
+
+
 def fetch(url: str) -> bytes:
     """GET over loopback."""
     import urllib.request
@@ -2989,6 +3213,8 @@ def main() -> int:
                                               replays["default"], oracle)
     rows += knob_kernels
     launches.update(knob_launches)
+    launches.update(cadence_phase(dev, card, raw, msk, replays, oracle,
+                                  launches["20 Hz"]))
 
     # the windowed k-NN runs at k=5 in the strict replays, the entry and
     # the online engine only, at k=8 in the hybrid ones (phase 10's
@@ -2997,8 +3223,8 @@ def main() -> int:
     # selections of phase 12 and phase 13 a have rows of their own;
     # every other count sums over the replays
     k8_runs = ("hybrid", "batch", "golden hybrid", "cli bag", "scale-out a",
-               "scale-out b", "scale-out c", "long hybrid")
-    online = [n for n in launches if n.startswith("online")]
+               "scale-out b", "scale-out c", "long hybrid", "cadence hybrid")
+    online = [n for n in launches if "online" in n]
     dense = list(DENSE_MODES) + list(RATE5_MODES)
     # phase 14's walks and unpruned k-NN have rows of their own
     own_row = {"select_walk_reach": ("reach 8", "select_walk"),
@@ -3012,7 +3238,8 @@ def main() -> int:
             r["launches"] = sum(
                 launches[n]["knn_topk_dyn"] for n in
                 ["default", "entry", "long strict", "long split",
-                 "dense strict", "5 Hz strict", "20 Hz"] + online)
+                 "dense strict", "5 Hz strict", "20 Hz", "cadence 20 Hz",
+                 "cadence default", "cadence batch"] + online)
         elif r["name"] == "knn_topk_dyn_k8":
             r["launches"] = sum(launches[n]["knn_topk_dyn"] for n in k8_runs)
         elif r["name"] == "knn_topk_dyn_k16":

@@ -49,7 +49,16 @@ class OdomState:
     def create(cfg: LoamConfig, device=None,
                batch: int | None = None) -> "OdomState":
         """device: None is the CUDA device (raises without one); batch:
-        None for one scenario, B for a leading scenario axis."""
+        None for one scenario, B for a leading scenario axis.
+
+        The skip-frame counter starts at skip_frame_num, as the C++'s
+        frameCount = skipFrameNum (src/laserOdometry.cpp:51,886): the
+        first solved frame (frame 1) publishes to mapping, then every
+        (skip_frame_num + 1)-th, which is pipeline.mapping_frame.
+        loam_tpu starts it at a fixed 1 (loam_tpu/odometry.py:46), the
+        same cadence only at skip_frame_num <= 1: at 2 it maps frames
+        2, 5, ... where its own mapping_frame and static core map
+        1, 4, ... (tests/test_torch_cadence.py)."""
         device = resolve_device(device)
         lead = () if batch is None else (batch,)
         return OdomState(

@@ -53,7 +53,14 @@ class FrameOutput:
 
 
 def mapping_frame(k: int, cfg: LoamConfig) -> bool:
-    """Whether mapping runs at (0-based) frame k."""
+    """Whether mapping runs at (0-based) frame k: the host-side mirror of
+    the odometry's skip-frame counter.  Frame 0 is the init frame (no
+    pose, no mapping, src/laserOdometry.cpp:427-456); the counter starts
+    at skip_frame_num (OdomState.create, the C++'s frameCount =
+    skipFrameNum, src/laserOdometry.cpp:51,886), so frame 1 publishes,
+    then every (skip_frame_num + 1)-th.  loam_tpu's counter starts at a
+    fixed 1 (loam_tpu/odometry.py:46), which agrees with this only at
+    skip_frame_num <= 1."""
     return k >= 1 and (k - 1) % (cfg.skip_frame_num + 1) == 0
 
 

@@ -700,6 +700,36 @@ def _teacher_forced_mapping(raw, msk, cfg, devices):
     return poses
 
 
+def test_cadence_at_skip_3_on_card(cuda):
+    """Nine sweeps at skip_frame_num=3 on the card map at frames 1 and 5,
+    pipeline.mapping_frame's cadence, as on the CPU; frames 0-1 within
+    the batch's 1e-4 rad / 1e-3 m of the CPU's, and the mapping frame 5
+    (the first solve), from one CPU state on both devices, within the
+    CPU mapping tests' 1e-6 rad / 1e-5 m (later frames of a whole replay
+    bound nothing: ROADMAP.md section 3, "the GPU tests' 4-sweep replays
+    are ill-conditioned")."""
+    from loam_tpu_torch import pipeline
+
+    raw, msk, _ = make_sweeps(9)
+    cfg = dataclasses.replace(small_config(), skip_frame_num=3)
+    gpu = pipeline.replay_sweeps(raw, msk, cfg)
+    cpu = pipeline.replay_sweeps(raw, msk, cfg, device="cpu")
+    want = [pipeline.mapping_frame(k, cfg) for k in range(9)]
+    assert gpu.mapped.cpu().tolist() == cpu.mapped.tolist() == want
+    assert [k for k, m in enumerate(want) if m] == [1, 5]
+    for field in ("pose_odom", "pose_aft", "pose_integrated"):
+        diff = (getattr(gpu, field)[:2].cpu() - getattr(cpu, field)[:2]).abs()
+        assert diff[:, :3].max() < 1e-4 and diff[:, 3:].max() < 1e-3, \
+            (field, diff)
+    step_cpu, step_gpu = _teacher_forced_mapping(raw[:6], msk[:6], cfg,
+                                                 ("cpu", cuda))
+    diff = (step_gpu - step_cpu).abs()
+    print(f"skip 3: teacher-forced mapping frame 5, card - CPU "
+          f"{diff[:3].max():.3g} rad, {diff[3:].max():.3g} m")
+    assert diff[:3].max() < 1e-6 and diff[3:].max() < 1e-5, diff
+    assert torch.isfinite(gpu.pose_integrated).all()
+
+
 @pytest.mark.parametrize(
     "over,match", [(over, None) for _, over in WIDE_K]
     + [case[1:] for case in REFUSED],
